@@ -1,0 +1,64 @@
+"""Plain PyTorch versions of the hand-written kernels (the correctness contract).
+
+Packed bit matrices are ``int32[rows, words]``: bit j of word w is column
+32w + j, the reference's uint32 layout reinterpreted as signed words (a numpy
+``uint32`` array crosses over with ``arr.view(np.int32)``).  Bit 31 is a real
+column, so every shift here is followed by a mask.
+
+``bitmm_plain`` unpacks to ``{0,1}`` float32 and multiplies.  Each output
+entry counts matching bits, at most K < 2**24, so float32 holds it exactly;
+TF32 keeps the {0,1} inputs exact and accumulates in float32 as well, so the
+result is exact with or without ``allow_tf32``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+WORD = 32
+
+
+def _shifts(device) -> torch.Tensor:
+    return torch.arange(WORD, dtype=torch.int32, device=device)
+
+
+def unpack_bits(packed: torch.Tensor, m: int | None = None) -> torch.Tensor:
+    """int32[n, w] → bool[n, m] (``m`` defaults to 32·w)."""
+    n, w = packed.shape
+    bits = (packed[:, :, None] >> _shifts(packed.device)) & 1
+    out = bits.reshape(n, w * WORD).to(torch.bool)
+    return out[:, :m] if m is not None else out
+
+
+def pack_bits(dense: torch.Tensor) -> torch.Tensor:
+    """bool[n, m] → int32[n, ceil(m/32)], zero bits past column m.
+
+    Words are summed in int64 (bit 31 alone is 2**31) and cast down, which
+    wraps to the same 32 bits.
+    """
+    n, m = dense.shape
+    pad = (-m) % WORD
+    if pad:
+        dense = torch.cat([dense, dense.new_zeros((n, pad))], dim=1)
+    d = dense.reshape(n, -1, WORD).to(torch.int64)
+    return (d << _shifts(dense.device).to(torch.int64)).sum(dim=-1).to(torch.int32)
+
+
+def bitmm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A ⊛ B over the OR-AND semiring on packed operands.
+
+    a: int32[M, ceil(K/32)], b: int32[K, Nw] → int32[M, Nw].  A's bits at
+    columns ≥ K are ignored.
+    """
+    k, nw = b.shape
+    af = unpack_bits(a, k).to(torch.float32)
+    bf = unpack_bits(b).to(torch.float32)
+    return pack_bits((af @ bf) > 0.0)
+
+
+def bitmm_fused_delta_plain(
+    a: torch.Tensor, b: torch.Tensor, m: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One PBME iteration: Δ' = (A⊛B) & ~M;  M' = M | Δ'."""
+    delta = bitmm_plain(a, b) & ~m
+    return delta, m | delta

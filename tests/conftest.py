@@ -37,3 +37,11 @@ def adj_of(edges: np.ndarray, n: int) -> np.ndarray:
     a = np.zeros((n, n), bool)
     a[edges[:, 0], edges[:, 1]] = True
     return a
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; the test skips itself where "
+        "torch.cuda.is_available() is false",
+    )

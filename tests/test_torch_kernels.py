@@ -1,0 +1,118 @@
+"""PBME product kernels: plain versions against the Pallas kernels, wrapper
+dispatch and argument checks.
+
+The reference runs ``repro.kernels.ops`` as ``tests/test_kernels.py`` does
+(Pallas interpret mode on the CPU).  Results are packed words and must be
+equal bit for bit.  The CUDA kernels themselves run only on the card:
+``test_torch_cuda.py`` holds them against the plain versions there.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops
+from repro_torch.kernels import bitmm as kb
+from repro_torch.kernels.ref import bitmm_fused_delta_plain, bitmm_plain, pack_bits
+
+SHAPES = [(128, 128, 128), (130, 70, 200), (64, 33, 97)]
+
+
+def _pack(dense: np.ndarray) -> np.ndarray:
+    """bool[r, c] → uint32[r, ceil(c/32)], the reference's layout."""
+    r, c = dense.shape
+    d = np.pad(dense, ((0, 0), (0, (-c) % 32))).astype(np.uint32).reshape(r, -1, 32)
+    return (d << np.arange(32, dtype=np.uint32)).sum(axis=-1, dtype=np.uint32)
+
+
+def _t(words: np.ndarray) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(words).view(np.int32))
+
+
+def _operands(shape, density, seed):
+    m, k, n = shape
+    rng = np.random.default_rng(seed)
+    a = _pack(rng.random((m, k)) < density)
+    b = _pack(rng.random((k, n)) < density)
+    cur = _pack(rng.random((m, n)) < 0.05)
+    return a, b, cur
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("density", [0.02, 0.3])
+def test_plain_matches_pallas(shape, density):
+    a, b, cur = _operands(shape, density, sum(shape))
+    expect = np.asarray(ops.bitmm(jnp.asarray(a), jnp.asarray(b)))
+    got = kb.bitmm(_t(a), _t(b)).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, expect)
+    e_delta, e_m = ops.bitmm_fused_delta(jnp.asarray(a), jnp.asarray(b), jnp.asarray(cur))
+    g_delta, g_m = kb.bitmm_fused_delta(_t(a), _t(b), _t(cur))
+    np.testing.assert_array_equal(g_delta.numpy().view(np.uint32), np.asarray(e_delta))
+    np.testing.assert_array_equal(g_m.numpy().view(np.uint32), np.asarray(e_m))
+
+
+def test_empty_and_full():
+    z = np.zeros((128, 4), np.uint32)
+    f = np.full((128, 4), 0xFFFFFFFF, np.uint32)
+    for x, y in ((z, z), (f, f), (z, f), (f, z)):
+        expect = np.asarray(ops.bitmm(jnp.asarray(x), jnp.asarray(y)))
+        np.testing.assert_array_equal(kb.bitmm(_t(x), _t(y)).numpy().view(np.uint32), expect)
+    delta, m = kb.bitmm_fused_delta(_t(f), _t(f), _t(z))
+    assert (delta.numpy().view(np.uint32) == 0xFFFFFFFF).all()
+    assert (m.numpy().view(np.uint32) == 0xFFFFFFFF).all()
+
+
+def test_bits_past_k_are_ignored():
+    """A's words may carry bits for columns ≥ K; the product ignores them."""
+    rng = np.random.default_rng(1)
+    a = rng.integers(-(2**31), 2**31, size=(40, 2), dtype=np.int64).astype(np.int32)
+    b = _t(_pack(rng.random((33, 50)) < 0.3))
+    masked = a.copy()
+    masked[:, 1] &= 1                                    # K = 33: one bit of word 1
+    np.testing.assert_array_equal(
+        bitmm_plain(torch.as_tensor(a), b).numpy(), bitmm_plain(torch.as_tensor(masked), b).numpy()
+    )
+
+
+def test_cpu_tensors_take_the_plain_version():
+    a, b, cur = _operands((64, 33, 97), 0.3, 0)
+    before = (kb.bitmm.launches, kb.bitmm_fused_delta.launches)
+    assert torch.equal(kb.bitmm(_t(a), _t(b)), bitmm_plain(_t(a), _t(b)))
+    for x, y in zip(kb.bitmm_fused_delta(_t(a), _t(b), _t(cur)),
+                    bitmm_fused_delta_plain(_t(a), _t(b), _t(cur))):
+        assert torch.equal(x, y)
+    assert (kb.bitmm.launches, kb.bitmm_fused_delta.launches) == before == (0, 0)
+
+
+def _bad_calls():
+    a = torch.zeros((8, 2), dtype=torch.int32)
+    b = torch.zeros((40, 3), dtype=torch.int32)
+    m = torch.zeros((8, 3), dtype=torch.int32)
+    return [
+        ("int32", lambda: kb.bitmm(a.long(), b)),
+        ("int32", lambda: kb.bitmm(a, b.to(torch.uint8))),
+        ("int32", lambda: kb.bitmm(a.float(), b)),
+        ("2-D", lambda: kb.bitmm(a[0], b)),
+        ("words per row", lambda: kb.bitmm(torch.zeros((8, 1), dtype=torch.int32), b)),
+        ("words per row", lambda: kb.bitmm(torch.zeros((8, 3), dtype=torch.int32), b)),
+        ("contiguous", lambda: kb.bitmm(torch.zeros((2, 8), dtype=torch.int32).T, b)),
+        ("m has shape", lambda: kb.bitmm_fused_delta(a, b, m[:, :2].contiguous())),
+        ("int32", lambda: kb.bitmm_fused_delta(a, b, m.long())),
+        ("cuda or cpu", lambda: kb.bitmm(a.to("meta"), b.to("meta"))),
+        ("is on", lambda: kb.bitmm(a, b.to("meta"))),
+    ]
+
+
+@pytest.mark.parametrize("match, call", _bad_calls(), ids=[f"bad{i}" for i in range(11)])
+def test_wrappers_refuse_bad_arguments(match, call):
+    """Checked before any dispatch, so the CUDA route refuses them too."""
+    with pytest.raises(ValueError, match=match):
+        call()
+    assert (kb.bitmm.launches, kb.bitmm_fused_delta.launches) == (0, 0)
+
+
+def test_pack_bits_wraps_bit_31():
+    dense = torch.zeros((1, 40), dtype=torch.bool)
+    dense[0, 31] = dense[0, 32] = True
+    assert pack_bits(dense).tolist() == [[-(2**31), 1]]
