@@ -1,1 +1,1 @@
-"""The paper's Datalog workloads as program text."""
+"""The paper's Datalog workloads as program text, and model configurations."""

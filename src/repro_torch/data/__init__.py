@@ -1,1 +1,2 @@
-"""Seeded synthetic EDBs: graphs and program-analysis facts (numpy only)."""
+"""Seeded synthetic data: graphs, program-analysis facts and the recsys
+click stream (numpy only)."""

@@ -6,6 +6,9 @@ codec writes.  :func:`store_from_reference` builds the port's handles from it
 (same rows, counts and capacities), and each handle's ``to_blocks()`` gives
 back byte-identical arrays.  A packed PBME matrix crosses as ``uint32`` words
 reinterpreted as ``int32``.
+
+:func:`two_tower_from_reference` carries the reference's two-tower
+``init_params`` pytree, as numpy arrays, into the port's ``TwoTower``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.relation import DenseAggRelation, DenseSetRelation, TupleRelation
+from repro_torch.models.recsys import RecsysConfig, TwoTower
 
 _KINDS = {
     "tuple": TupleRelation,
@@ -51,3 +55,32 @@ def bitmatrix_from_reference(words: np.ndarray, device) -> torch.Tensor:
 def bitmatrix_to_reference(packed: torch.Tensor) -> np.ndarray:
     """The port's packed ``int32`` words → ``uint32`` (same bits)."""
     return packed.cpu().numpy().view(np.uint32)
+
+
+def two_tower_from_reference(params: dict, cfg: RecsysConfig, device) -> TwoTower:
+    """The reference's ``init_params(key, cfg)`` pytree (arrays as numpy) →
+    a ``TwoTower`` on ``device`` holding the same weights, in the same
+    ``[d_in, d_out]`` layout."""
+    model = TwoTower(cfg, device=device)
+    own = {
+        "user_table": model.user_table,
+        "item_table": model.item_table,
+        **{f"user_mlp.{k}": v for k, v in model.user_mlp.items()},
+        **{f"item_mlp.{k}": v for k, v in model.item_mlp.items()},
+    }
+    given = {
+        "user_table": params["user_table"],
+        "item_table": params["item_table"],
+        **{f"user_mlp.{k}": v for k, v in params["user_mlp"].items()},
+        **{f"item_mlp.{k}": v for k, v in params["item_mlp"].items()},
+    }
+    if own.keys() != given.keys():
+        raise ValueError(f"two_tower_from_reference: parameters {sorted(given)}, "
+                         f"the config makes {sorted(own)}")
+    for name, arr in given.items():
+        arr = np.asarray(arr)
+        if arr.shape != tuple(own[name].shape):
+            raise ValueError(f"two_tower_from_reference: {name} has shape {arr.shape}, "
+                             f"the config makes {tuple(own[name].shape)}")
+        own[name].data.copy_(torch.tensor(arr, dtype=own[name].dtype))
+    return model

@@ -87,3 +87,9 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         _libs[name] = ctypes.CDLL(str(build_all()[name]))
     return _libs[name]
+
+
+def raise_on(err: int, what: str) -> None:
+    """Raise if a launch function returned a nonzero ``cudaError_t``."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")

@@ -63,11 +63,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {err}")
-
-
 def bitmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C = A ⊛ B over the OR-AND semiring: int32[M, Nw]."""
     _check(a, b)
@@ -83,7 +78,7 @@ def bitmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             a.data_ptr(), b.data_ptr(), c.data_ptr(), rows, a.shape[1], b.shape[0], nw,
             stream,
         )
-    _raise_on(err, "bitmm")
+    _build.raise_on(err, "bitmm")
     bitmm.launches += 1
     return c
 
@@ -109,7 +104,7 @@ def bitmm_fused_delta(
             a.data_ptr(), b.data_ptr(), m.data_ptr(), delta.data_ptr(), m_out.data_ptr(),
             rows, a.shape[1], b.shape[0], nw, stream,
         )
-    _raise_on(err, "bitmm_fused_delta")
+    _build.raise_on(err, "bitmm_fused_delta")
     bitmm_fused_delta.launches += 1
     return delta, m_out
 

@@ -9,6 +9,8 @@ column, so every shift here is followed by a mask.
 entry counts matching bits, at most K < 2**24, so float32 holds it exactly;
 TF32 keeps the {0,1} inputs exact and accumulates in float32 as well, so the
 result is exact with or without ``allow_tf32``.
+
+``gather_sum_plain`` is the embedding-bag / ELL SpMM row sum, in float32.
 """
 
 from __future__ import annotations
@@ -62,3 +64,17 @@ def bitmm_fused_delta_plain(
     """One PBME iteration: Δ' = (A⊛B) & ~M;  M' = M | Δ'."""
     delta = bitmm_plain(a, b) & ~m
     return delta, m | delta
+
+
+def gather_sum_plain(idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """out[b] = Σ_k x[idx[b, k]] over idx ≥ 0: idx int32[B, K], x [N, D] → [B, D].
+
+    Rows are summed in float32 and cast to ``x.dtype`` once.  A bag holding
+    an id ≥ N is NaN in every column, as ``jnp.take``'s fill mode makes it in
+    the reference's ``embedding_bag``; no row past N − 1 is read.
+    """
+    n = x.shape[0]
+    rows = x[idx.clamp(0, n - 1).long()].float()                  # [B, K, D]
+    out = torch.where((idx >= 0)[..., None], rows, 0.0).sum(dim=1)
+    out = torch.where((idx >= n).any(dim=1)[:, None], float("nan"), out)
+    return out.to(x.dtype)

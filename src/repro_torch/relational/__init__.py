@@ -1,1 +1,2 @@
-"""Sorted-table primitives on torch tensors."""
+"""Relational primitives on torch tensors: sorted tables, segment
+aggregates and embedding bags."""

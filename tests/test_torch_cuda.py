@@ -1,5 +1,6 @@
-"""The port on the card: CUDA kernels against their plain versions and the
-engine on CUDA against the engine on the CPU, bit for bit.
+"""The port on the card: CUDA kernels against their plain versions, the
+engine on CUDA against the engine on the CPU bit for bit, and the two-tower
+model on CUDA against the same model on the CPU.
 
 Imports neither JAX nor ``repro``, so it runs on a machine that has only
 PyTorch with CUDA::
@@ -16,8 +17,14 @@ import torch
 from repro_torch.configs.datalog_workloads import ALL
 from repro_torch.core import Engine, EngineConfig
 from repro_torch.data.graphs import random_graph
+from repro_torch.configs.two_tower_retrieval import SMOKE
+from repro_torch.data.recsys_stream import RecsysStream
 from repro_torch.kernels import bitmm as kb
-from repro_torch.kernels.ref import bitmm_fused_delta_plain, bitmm_plain, pack_bits
+from repro_torch.kernels import gather_sum as kg
+from repro_torch.kernels.ref import (
+    bitmm_fused_delta_plain, bitmm_plain, gather_sum_plain, pack_bits,
+)
+from repro_torch.models.recsys import TwoTower
 
 pytestmark = pytest.mark.cuda
 
@@ -60,3 +67,56 @@ def test_engine_on_cuda_matches_cpu(cuda, name):
     assert outs[0].keys() == outs[1].keys()
     for rel in outs[0]:
         np.testing.assert_array_equal(outs[0][rel], outs[1][rel])
+
+
+# (B, K, N, D): test_gather_sum_sweep's shapes, then D off the 16-byte vector
+# width (the scalar path), a bag longer than a warp, and a grid-stride run
+GATHER_SHAPES = [(8, 3, 20, 128), (16, 7, 50, 256), (4, 1, 5, 384), (9, 5, 30, 99),
+                 (5, 40, 64, 36), (70_000, 8, 1000, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", GATHER_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_gather_sum_matches_plain(cuda, dtype, shape):
+    b, k, n, d = shape
+    rng = np.random.default_rng(b + k)
+    idx = torch.as_tensor(rng.integers(-1, n, size=(b, k)).astype(np.int32), device=cuda)
+    x = torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32), device=cuda).to(dtype)
+    before = kg.gather_sum.launches
+    got = kg.gather_sum(idx, x)
+    assert kg.gather_sum.launches == before + 1
+    want = gather_sum_plain(idx, x)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gather_sum_unaligned_rows_and_out_of_range_ids(cuda, dtype):
+    """x starting one element past a 16-byte boundary takes the scalar path;
+    a bag holding an id ≥ N is NaN and reads no row."""
+    rng = np.random.default_rng(0)
+    flat = torch.as_tensor(rng.standard_normal(1 + 40 * 64).astype(np.float32), device=cuda)
+    x = flat.to(dtype)[1:].view(40, 64)
+    idx = torch.as_tensor(rng.integers(-1, 40, size=(12, 6)).astype(np.int32), device=cuda)
+    idx[3, 2] = 40
+    idx[7, 0] = 2**31 - 1
+    got, want = kg.gather_sum(idx, x), gather_sum_plain(idx, x)
+    assert got[[3, 7]].isnan().all() and not got[[0, 1, 2, 4, 5, 6]].isnan().any()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, equal_nan=True)
+
+
+def test_two_tower_on_cuda_matches_cpu(cuda):
+    model = TwoTower(SMOKE, torch.Generator().manual_seed(1), device="cpu")
+    gpu = TwoTower(SMOKE, device=cuda)
+    gpu.load_state_dict(model.state_dict())
+    stream = RecsysStream(SMOKE.user_vocab, SMOKE.item_vocab, SMOKE.user_fields,
+                          SMOKE.item_fields, SMOKE.field_hots, SMOKE.n_dense_feat, batch=64)
+    batch = stream.batch(0)
+    cpu_b = {k: torch.as_tensor(v) for k, v in batch.items()}
+    gpu_b = {k: v.to(cuda) for k, v in cpu_b.items()}
+    before = kg.gather_sum.launches
+    got = gpu.serve_scores(gpu_b)
+    assert kg.gather_sum.launches == before + SMOKE.user_fields + SMOKE.item_fields
+    torch.testing.assert_close(got.cpu(), model.serve_scores(cpu_b), atol=1e-4, rtol=1e-4)

@@ -42,6 +42,9 @@ def test_imports_with_jax_and_repro_blocked():
         "    sys.modules[name] = None\n"
         "import repro_torch.core.engine, repro_torch.interop, repro_torch.kernels.bitmm\n"
         "import repro_torch.data.graphs, repro_torch.configs.datalog_workloads\n"
+        "import repro_torch.kernels.gather_sum, repro_torch.relational.segment\n"
+        "import repro_torch.relational.embedding, repro_torch.models.recsys.two_tower\n"
+        "import repro_torch.configs.two_tower_retrieval, repro_torch.data.recsys_stream\n"
         "print('ok')\n"
     )
     out = subprocess.run(

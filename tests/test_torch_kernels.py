@@ -1,10 +1,12 @@
-"""PBME product kernels: plain versions against the Pallas kernels, wrapper
-dispatch and argument checks.
+"""Kernels' plain versions against the Pallas kernels, wrapper dispatch and
+argument checks.
 
 The reference runs ``repro.kernels.ops`` as ``tests/test_kernels.py`` does
-(Pallas interpret mode on the CPU).  Results are packed words and must be
-equal bit for bit.  The CUDA kernels themselves run only on the card:
-``test_torch_cuda.py`` holds them against the plain versions there.
+(Pallas interpret mode on the CPU).  PBME products are packed words and must
+be equal bit for bit; gather-sum is held to ``test_gather_sum_sweep``'s
+tolerances (float32 1e-5, bfloat16 2e-2).  The CUDA kernels themselves run
+only on the card: ``test_torch_cuda.py`` holds them against the plain
+versions there.
 """
 
 import jax.numpy as jnp
@@ -13,8 +15,12 @@ import pytest
 import torch
 
 from repro.kernels import ops
+from repro.relational.embedding import embedding_bag as ref_embedding_bag
 from repro_torch.kernels import bitmm as kb
-from repro_torch.kernels.ref import bitmm_fused_delta_plain, bitmm_plain, pack_bits
+from repro_torch.kernels import gather_sum as kg
+from repro_torch.kernels.ref import (
+    bitmm_fused_delta_plain, bitmm_plain, gather_sum_plain, pack_bits,
+)
 
 SHAPES = [(128, 128, 128), (130, 70, 200), (64, 33, 97)]
 
@@ -116,3 +122,103 @@ def test_pack_bits_wraps_bit_31():
     dense = torch.zeros((1, 40), dtype=torch.bool)
     dense[0, 31] = dense[0, 32] = True
     assert pack_bits(dense).tolist() == [[-(2**31), 1]]
+
+
+# -- gather-sum ---------------------------------------------------------------
+
+GATHER_SHAPES = [(8, 3, 20, 128), (16, 7, 50, 256), (4, 1, 5, 384)]   # test_gather_sum_sweep
+TORCH_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+
+def _gather_inputs(bk, seed):
+    b, k, n, d = bk
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-1, n, size=(b, k)).astype(np.int32)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return idx, x
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bk", GATHER_SHAPES)
+def test_gather_sum_matches_pallas(dtype, bk):
+    idx, x = _gather_inputs(bk, bk[0] + bk[1])
+    xj = jnp.asarray(x, dtype)
+    expect = np.asarray(ops.spmm_ell(jnp.asarray(idx), xj), np.float32)
+    xt = torch.tensor(np.asarray(xj.astype(jnp.float32))).to(TORCH_DTYPES[dtype])
+    tol = 1e-5 if dtype == jnp.float32 else 2e-2
+    for fn in (gather_sum_plain, kg.gather_sum, kg.spmm_ell,
+               lambda i, t: kg.embed_bag(t, i)):
+        got = fn(torch.as_tensor(idx), xt)
+        assert got.dtype == xt.dtype and tuple(got.shape) == (idx.shape[0], x.shape[1])
+        np.testing.assert_allclose(got.float().numpy(), expect, atol=tol, rtol=tol)
+
+
+def test_gather_sum_matches_relational_reference():
+    """The port's kernel route equals the reference's ``embedding_bag``, which
+    the model calls (``test_embed_bag_matches_relational_reference``)."""
+    rng = np.random.default_rng(1)
+    table = rng.standard_normal((40, 128)).astype(np.float32)
+    idx = rng.integers(-1, 40, size=(6, 5)).astype(np.int32)
+    expect = np.asarray(ref_embedding_bag(jnp.asarray(table), jnp.asarray(idx)))
+    got = kg.embed_bag(torch.as_tensor(table), torch.as_tensor(idx)).numpy()
+    np.testing.assert_allclose(got, expect, atol=1e-5)
+
+
+def test_gather_sum_out_of_range_id_is_nan():
+    """A bag holding an id ≥ N is NaN, as ``jnp.take``'s fill mode makes it in
+    the reference's ``embedding_bag``; other bags are untouched."""
+    rng = np.random.default_rng(2)
+    table = rng.standard_normal((10, 8)).astype(np.float32)
+    idx = np.array([[1, 2, -1], [0, 10, -1], [-1, -1, -1], [9, 12, 3]], np.int32)
+    expect = np.asarray(ref_embedding_bag(jnp.asarray(table), jnp.asarray(idx)))
+    assert np.isnan(expect[[1, 3]]).all() and not np.isnan(expect[[0, 2]]).any()
+    for dtype in (torch.float32, torch.bfloat16):
+        got = kg.gather_sum(torch.as_tensor(idx), torch.as_tensor(table).to(dtype))
+        np.testing.assert_allclose(got.float().numpy(), expect,
+                                   atol=1e-5 if dtype == torch.float32 else 2e-2)
+
+
+def test_gather_sum_accumulates_bf16_in_float32():
+    """Rows are summed in float32 and rounded once: 256 + 1 + 1 + ... stays
+    exact where a bfloat16 running sum would drop each 1."""
+    x = torch.tensor([[256.0], [1.0]], dtype=torch.bfloat16)
+    idx = torch.tensor([[0] + [1] * 8], dtype=torch.int32)
+    assert kg.gather_sum(idx, x).item() == 264.0
+
+
+def test_gather_sum_edges_and_cpu_route():
+    x = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    assert kg.gather_sum(torch.zeros((0, 2), dtype=torch.int32), x).shape == (0, 3)
+    assert kg.gather_sum(torch.zeros((3, 0), dtype=torch.int32), x).eq(0).all()
+    assert kg.gather_sum(torch.full((2, 3), -1, dtype=torch.int32), x).eq(0).all()
+    assert kg.gather_sum.launches == 0
+
+
+def _bad_gather_calls():
+    idx = torch.zeros((4, 3), dtype=torch.int32)
+    x = torch.zeros((10, 8), dtype=torch.float32)
+    w = torch.zeros((10, 8), dtype=torch.float32, requires_grad=True)
+    return [
+        ("torch.int32", lambda: kg.gather_sum(idx.long(), x)),
+        ("torch.int32", lambda: kg.gather_sum(idx[0], x)),
+        ("float32 or bfloat16", lambda: kg.gather_sum(idx, x.half())),
+        ("float32 or bfloat16", lambda: kg.gather_sum(idx, x.double())),
+        ("float32 or bfloat16", lambda: kg.gather_sum(idx, x[None])),
+        ("contiguous", lambda: kg.gather_sum(torch.zeros((3, 4), dtype=torch.int32).T, x)),
+        ("contiguous", lambda: kg.gather_sum(idx, torch.zeros((8, 10)).T)),
+        ("no rows", lambda: kg.gather_sum(idx, x[:0])),
+        ("exceed", lambda: kg.gather_sum(torch.zeros((1, kg.MAX_K + 1), dtype=torch.int32), x)),
+        ("no backward", lambda: kg.gather_sum(idx, w)),
+        ("cuda or cpu", lambda: kg.gather_sum(idx.to("meta"), x.to("meta"))),
+        ("is on", lambda: kg.gather_sum(idx, x.to("meta"))),
+    ]
+
+
+@pytest.mark.parametrize("match, call", _bad_gather_calls(),
+                         ids=[f"bad{i}" for i in range(12)])
+def test_gather_sum_refuses_bad_arguments(match, call):
+    """Checked before any dispatch, so the CUDA route refuses them too; the
+    tower hands each field over contiguous, never a strided view."""
+    with pytest.raises(ValueError, match=match):
+        call()
+    assert kg.gather_sum.launches == 0
