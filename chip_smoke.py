@@ -12,12 +12,17 @@ Phases, one output line each:
 2. build   — compiles every ``csrc/*.cu`` with ``nvcc`` for ``sm_90a``;
 3. kernels — each hand-written kernel against its plain PyTorch version, bit
    for bit, at the test shapes and at the main path's shape (n = 10000:
-   ``int32[10000, 313]`` operands), with median times of kernel, plain
-   version and the library yardstick, and the least time the card could take;
+   ``int32[10000, 313]`` operands; A sparse as the arc, mixed — empty,
+   sparse and dense 1024-bit K stages in turn — and dense), with median times
+   of kernel, plain version and the library yardstick, and the least time
+   the card could take;
 4. tc / 5. sg — the main path: ``Engine.run`` on TC and SG over the paper's
    G10K graph (``gnp_graph(10000, p=0.001, seed=1)``) through the PBME
    kernels.  Launch counts are set to 0 just before and read just after, and
    each fixpoint must equal the one the plain fixpoint loop computes on the card;
+   a separate run of the fixpoint loop alone gives ``fixpoint_seconds`` and
+   one more, with CUDA events around each product, ``per_launch`` (ms, A's
+   density and the bound of each launch);
 6. tuple   — the tuple and dense paths (CSDA, Andersen, CC, REACH, SSSP at
    the benchmarks' largest sizes) on the card against the same port on the
    CPU, bit for bit;
@@ -58,7 +63,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
+# bitmm runs single-bit mma.sync (AND + POPC), whose rate NVIDIA does not
+# publish: tools/mma_rates.py measured 5.2e15 bit multiply-accumulates a second
+# on an H100 80GB HBM3 at 700 W, two operations each
+B1_OPS_PER_S = 2 * 5.20191304247123e15
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 G10K = 10_000
 REPS = 20
@@ -69,6 +77,10 @@ CORPUS, TOP_K, QUERY_CALLS = 1_000_000, 100, 20
 GATHER_SWEEP = [(8, 3, 20, 128), (16, 7, 50, 256), (4, 1, 5, 384),   # test_gather_sum_sweep
                 (9, 5, 30, 99), (5, 40, 64, 36)]                      # the scalar path
 SCORE_TOL = 1e-4
+# bitmm shapes held bit for bit against the plain version: multiples of none of
+# the kernel's tiles (128 rows, 256 columns, 1024-bit K stages), or one past one
+EXACT_SHAPES = [(128, 128, 128), (130, 70, 200), (64, 33, 97), (1, 1, 1), (300, 1000, 4100),
+                (129, 257, 8193)]
 
 
 def check(cond: bool, what: str) -> None:
@@ -95,6 +107,17 @@ def time_ms(fn, reps: int = REPS, warm: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bitmm_bound(a, n: int, n_arrays: int) -> tuple[float, str]:
+    """Least ms of a bit-matrix product with A ``a`` and an n-column B: its
+    ``n_arrays`` word arrays of A's size read or written once, or one
+    multiply-add per set bit of A and column of B at the b1 rate."""
+    from repro_torch.core.bitmatrix import popcount
+
+    bound_bytes = n_arrays * a.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    bound_ops = 2.0 * int(popcount(a)) * n / B1_OPS_PER_S * 1e3
+    return max(bound_bytes, bound_ops), "operations" if bound_ops >= bound_bytes else "bytes"
 
 
 def max_abs_err(got, want) -> int:
@@ -409,7 +432,7 @@ def main() -> int:
     kb._lib()
     kg._lib()
     ptxas = [ln.strip() for log in _build.stats["log"].values() for ln in log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
+             if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
     emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=_build.stats["seconds"],
          libraries=[str(p.relative_to(ROOT)) for p in libs.values()], ptxas=ptxas)
 
@@ -421,8 +444,7 @@ def main() -> int:
 
     err = {"bitmm": 0, "bitmm_fused_delta": 0}
     compared = 0
-    cases = [((m, k, n), d) for (m, k, n) in ((128, 128, 128), (130, 70, 200), (64, 33, 97))
-             for d in (0.0, 0.02, 0.3, 1.0)]
+    cases = [((m, k, n), d) for (m, k, n) in EXACT_SHAPES for d in (0.0, 0.02, 0.3, 1.0)]
     for (m, k, n), d in cases:
         a, b, cur = bits(m, k, d), bits(k, n, d), bits(m, n, 0.05)
         got, want = kb.bitmm(a, b), bitmm_plain(a, b)
@@ -434,8 +456,15 @@ def main() -> int:
     edges = gnp_graph(G10K, p=0.001, seed=1)
     arc = edges_to_bitmatrix(torch.as_tensor(edges, device=dev), G10K)
     check(tuple(arc.shape) == (G10K, 313), f"arc shape {tuple(arc.shape)}")
+    def mixed_a():
+        """Empty, arc-sparse and dense 1024-bit K stages in turn."""
+        stage = torch.arange(G10K, device=dev) // 1024
+        density = torch.tensor([0.0, 1e-3, 0.5], device=dev)[stage % 3]
+        return pack_bits(torch.rand((G10K, G10K), generator=gen, device=dev) < density)
+
     main_shape = {}
-    for label, a in (("sparse", arc), ("dense", bits(G10K, G10K, 0.5))):
+    main_a = {"sparse": arc, "mixed": mixed_a(), "dense": bits(G10K, G10K, 0.5)}
+    for label, a in main_a.items():
         cur = bits(G10K, G10K, 0.05)
         got, want = kb.bitmm(a, arc), bitmm_plain(a, arc)
         err["bitmm"] = max(err["bitmm"], max_abs_err(got, want))
@@ -447,9 +476,6 @@ def main() -> int:
 
         af = unpack_bits(a, G10K).half()
         bf = unpack_bits(arc, G10K).half()
-        words = a.numel() * 4
-        ops = 2.0 * int(popcount(a)) * G10K        # one multiply-add per set bit of A per column
-        bound_ops = ops / INT8_OPS_PER_S * 1e3
         library_ms = time_ms(lambda: torch.matmul(af, bf))
         del af, bf
         row = {}
@@ -458,19 +484,22 @@ def main() -> int:
             ("bitmm_fused_delta", lambda: kb.bitmm_fused_delta(a, arc, cur),
              lambda: bitmm_fused_delta_plain(a, arc, cur), 5),
         ):
-            bound_bytes = n_arrays * words / HBM_BYTES_PER_S * 1e3
+            bound_ms, bound_by = bitmm_bound(a, G10K, n_arrays)
             row[name] = {
                 "ms": time_ms(kernel),
                 "plain_ms": time_ms(plain),
                 "library_ms": library_ms,
-                "bound_ms": max(bound_bytes, bound_ops),
-                "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
                 "a_density": int(popcount(a)) / (G10K * G10K),
             }
         main_shape[label] = row
         torch.cuda.empty_cache()
     emit("kernels", exact_cases=compared, max_abs_err=err, n=G10K,
          shape=[G10K, 313], main_shape=main_shape)
+
+    del main_a, cur
+    torch.cuda.empty_cache()
 
     # -- 4/5. the main path: PBME TC and SG at G10K --------------------------
     def plain_tc(arc_m, _n):
@@ -498,6 +527,35 @@ def main() -> int:
 
     def read_launches():
         return {"bitmm": kb.bitmm.launches, "bitmm_fused_delta": kb.bitmm_fused_delta.launches}
+
+    def per_launch_ms(fixpoint, arc_m, n):
+        """One more fixpoint run, with CUDA events around each product: its
+        kernel, ms, the density of its A and its bound, in launch order."""
+        from repro_torch.core import bitmatrix
+
+        records = []
+
+        def timed(fn):
+            def call(a, *rest):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = fn(a, *rest)
+                end.record()
+                records.append((fn.__name__, a, start, end))
+                return out
+            return call
+
+        saved = bitmatrix.bitmm, bitmatrix.bitmm_fused_delta
+        bitmatrix.bitmm, bitmatrix.bitmm_fused_delta = timed(kb.bitmm), timed(kb.bitmm_fused_delta)
+        try:
+            fixpoint(arc_m, n)
+        finally:
+            bitmatrix.bitmm, bitmatrix.bitmm_fused_delta = saved
+        torch.cuda.synchronize()
+        return [{"kernel": name, "ms": start.elapsed_time(end),
+                 "a_density": int(popcount(a)) / (a.shape[0] * n),
+                 "bound_ms": bitmm_bound(a, n, 5 if name == "bitmm_fused_delta" else 3)[0]}
+                for name, a, start, end in records]
 
     launches = {"bitmm": 0, "bitmm_fused_delta": 0}
     for wl, plain, fixpoint in ((TC, plain_tc, tc_fixpoint), (SG, plain_sg, sg_fixpoint)):
@@ -535,7 +593,8 @@ def main() -> int:
              seconds=seconds, engine_seconds=eng.stats.total_seconds,
              stratum_seconds=eng.stats.stratum_seconds[0],
              fixpoint_seconds=fixpoint_seconds, to_host_seconds=seconds - eng.stats.total_seconds,
-             plain_fixpoint_seconds=plain_seconds, launches=used)
+             plain_fixpoint_seconds=plain_seconds, launches=used,
+             per_launch=per_launch_ms(fixpoint, arc_n, n))
         del out, got, want, arc_n
         torch.cuda.empty_cache()
 

@@ -28,7 +28,10 @@ from repro_torch.models.recsys import TwoTower
 
 pytestmark = pytest.mark.cuda
 
-SHAPES = [(128, 128, 128), (130, 70, 200), (64, 33, 97), (1, 1, 1), (300, 1000, 4100)]
+# the kernel's tiles are 128 rows x 256 columns x 1024-bit K stages: these
+# shapes are multiples of none of them, or one more than a multiple
+SHAPES = [(128, 128, 128), (130, 70, 200), (64, 33, 97), (1, 1, 1), (300, 1000, 4100),
+          (129, 257, 8193)]
 
 
 @pytest.fixture
@@ -52,6 +55,72 @@ def test_kernels_match_plain(cuda, shape):
             assert torch.equal(got, want)
         assert (kb.bitmm.launches, kb.bitmm_fused_delta.launches) == (
             before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+
+
+def _both_match_plain(a, b, cur):
+    assert torch.equal(kb.bitmm(a, b), bitmm_plain(a, b))
+    for got, want in zip(kb.bitmm_fused_delta(a, b, cur), bitmm_fused_delta_plain(a, b, cur)):
+        assert torch.equal(got, want)
+
+
+def _mixed_density(cuda):
+    """Row blocks whose 1024-bit K stages are empty, sparse and dense side by
+    side, so one launch skips, walks and runs the MMA; row block 2, with no
+    MMA stage, goes to the light walk kernel."""
+    rows, k = 300, 4 * 1024 + 40
+    density = torch.zeros((rows, k), device=cuda)
+    density[:, 1024:2048] = 2e-4                  # stage 1: a few bits, walked
+    density[:, 2048:3072] = 0.5                   # stage 2: dense, MMA
+    density[128:256, 3072:] = 0.02                # stages 3-4 of row block 1 only
+    density[256:, :] = 0.0                        # row block 2: empty
+    density[256:, 4095] = 1.0                     # but for one column
+    return density
+
+
+def _list_full_density(cuda):
+    """20 stages of about 480 set bits each per 128-row block: each is walked
+    (fewer than 512) until the row block's list of 8192 entries is full after
+    17, and the stages that no longer fit run on the MMA."""
+    return torch.full((300, 20 * 1024), 480 / (128 * 1024), device=cuda)
+
+
+@pytest.mark.parametrize("density", [_mixed_density, _list_full_density],
+                         ids=["mixed", "list_full"])
+def test_skip_walk_and_mma_stages_in_one_launch(cuda, density):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    dens = density(cuda)
+    rows, k, n = dens.shape[0], dens.shape[1], 700
+    a = pack_bits(torch.rand((rows, k), generator=gen, device=cuda) < dens)
+    b = pack_bits(torch.rand((k, n), generator=gen, device=cuda) < 0.05)
+    cur = pack_bits(torch.rand((rows, n), generator=gen, device=cuda) < 0.05)
+    _both_match_plain(a, b, cur)
+    torch.cuda.synchronize()
+
+
+def test_bitmm_on_a_second_device(cuda):
+    """The MMA kernel's shared-memory limit is set per device: after launches
+    on cuda:0, launches on cuda:1 must run and agree too."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        a = pack_bits(torch.rand((300, 2100), generator=gen, device=dev) < 0.5)
+        b = pack_bits(torch.rand((2100, 700), generator=gen, device=dev) < 0.05)
+        cur = pack_bits(torch.rand((300, 700), generator=gen, device=dev) < 0.05)
+        _both_match_plain(a, b, cur)
+        torch.cuda.synchronize(dev)
+
+
+def test_bit_31_of_every_word(cuda):
+    """Only bit 31 of each word set in A, B and M: the sign bit of int32."""
+    rows, k, n = 200, 33 * 32, 300
+    a = torch.full((rows, k // 32), -(2**31), dtype=torch.int32, device=cuda)
+    b = torch.full((k, (n + 31) // 32), -(2**31), dtype=torch.int32, device=cuda)
+    cur = torch.full((rows, b.shape[1]), -(2**31), dtype=torch.int32, device=cuda)
+    cur[::2] = 0
+    _both_match_plain(a, b, cur)
+    assert bool((kb.bitmm(a, b) == -(2**31)).all())
     torch.cuda.synchronize()
 
 

@@ -118,6 +118,20 @@ def test_wrappers_refuse_bad_arguments(match, call):
     assert (kb.bitmm.launches, kb.bitmm_fused_delta.launches) == (0, 0)
 
 
+def test_wrappers_refuse_more_words_than_the_grid_holds():
+    """Blocks along the output words are grid y: at most 65535 of 8 words."""
+    a = torch.zeros((1, 1), dtype=torch.int32)
+    b = torch.zeros((1, kb._MAX_GRID_Y * kb._WORDS_PER_BLOCK + 1), dtype=torch.int32)
+    m = torch.zeros((1, b.shape[1]), dtype=torch.int32)
+    with pytest.raises(ValueError, match="exceed the grid"):
+        kb.bitmm(a, b)
+    with pytest.raises(ValueError, match="exceed the grid"):
+        kb.bitmm_fused_delta(a, b, m)
+    ok = torch.zeros((1, kb._MAX_GRID_Y * kb._WORDS_PER_BLOCK), dtype=torch.int32)
+    assert kb.bitmm(a, ok).shape == (1, ok.shape[1])
+    assert (kb.bitmm.launches, kb.bitmm_fused_delta.launches) == (0, 0)
+
+
 def test_pack_bits_wraps_bit_31():
     dense = torch.zeros((1, 40), dtype=torch.bool)
     dense[0, 31] = dense[0, 32] = True
