@@ -15,7 +15,9 @@ Phases, one output line each:
    ``int32[10000, 313]`` operands; A sparse as the arc, mixed — empty,
    sparse and dense 1024-bit K stages in turn — and dense), with median times
    of kernel, plain version and the library yardstick, and the least time
-   the card could take;
+   the card could take; and ``bitmm`` at the serving increments' shapes
+   (M ∈ {1, 7, 128, 129, 1000} rows against the n = 10000 arc, K ∈ {1, 31,
+   33, 1024, 10000} at M = n), each with its ms and bound;
 4. tc / 5. sg — the main path: ``Engine.run`` on TC and SG over the paper's
    G10K graph (``gnp_graph(10000, p=0.001, seed=1)``) through the PBME
    kernels.  Launch counts are set to 0 just before and read just after, and
@@ -26,6 +28,24 @@ Phases, one output line each:
 6. tuple   — the tuple and dense paths (CSDA, Andersen, CC, REACH, SSSP at
    the benchmarks' largest sizes) on the card against the same port on the
    CPU, bit for bit;
+6b. serve  — the serving layer (``repro_torch.serve_datalog``), one line per
+   workload: each is materialized at 99 % of its EDB, one warm-up batch
+   applied, then a 1 % batch through ``apply_txn`` (as
+   ``benchmarks/bench_serve_datalog.py`` does), held bit for bit against a
+   from-scratch ``Engine.run`` of the final EDB: ``serve_tc_pbme`` and
+   ``serve_sg_pbme`` (``gnp_graph(10000, p=0.00015, seed=1)``, mode
+   ``bitmatrix``: the increments run ``bitmm`` at row-compacted shapes, M =
+   k < n and, in SG's sandwich, K = k), ``serve_tc_pbme_delete`` (G10K, a
+   1 % delete: mode ``full``, the fused kernel recomputes 10^8 facts, diffed
+   on the card), ``serve_tc_dred`` (``gnp_graph(1024, p=0.003, seed=0)``,
+   tuple backend, a 1 % delete: DRed), ``serve_csda`` (a 1 % insert, mode
+   ``delta``), ``serve_txn`` (the benchmark's two-relation transaction,
+   once as one transaction and once as two: one epoch against two) and
+   ``serve_reads`` (point queries through ``DatalogServer``, eight in
+   flight, each timed from submission to reply: 512 with no update in
+   flight, then while the writer thread inserts and deletes a 1 % batch in
+   turn until 400 reads have overlapped it; the answers after the last
+   insert publishes must be exact);
 7. gather_sum — the gather-sum kernel against its plain version at
    ``test_gather_sum_sweep``'s shapes (float32 within 1e-5, bfloat16 within
    2e-2) and at the two-tower path's shapes (``idx int32[262144, 8]`` from
@@ -42,7 +62,10 @@ Phases, one output line each:
    call), held against the plain-bag version: scores within 1e-4, indices
    equal wherever neighbouring reference scores differ by more than 1e-4.
 
-Then a ``kernels`` JSON line, the card's name and power limit, and, last,
+Then a ``kernels`` JSON line (``launches``: each kernel's count on its main
+path — TC and SG at G10K for ``bitmm`` and ``bitmm_fused_delta``, phases 8
+and 9 for ``gather_sum``; ``serve_launches``: the timed serving batches of
+phase 6b), the card's name and power limit, and, last,
 ``{"ok": true, "device": ...}``.  Any failure raises and exits non-zero; so
 does a machine without CUDA.
 """
@@ -81,6 +104,26 @@ SCORE_TOL = 1e-4
 # the kernel's tiles (128 rows, 256 columns, 1024-bit K stages), or one past one
 EXACT_SHAPES = [(128, 128, 128), (130, 70, 200), (64, 33, 97), (1, 1, 1), (300, 1000, 4100),
                 (129, 257, 8193)]
+# the serving increments' shapes: M frontier rows against the n x n arc, and
+# the sandwich product's K = k (a partial 128-row block, K off the 32-bit
+# word and the 1024-bit stage)
+SERVE_M = (1, 7, 128, 129, 1000)
+SERVE_K = (1, 31, 33, 1024, 10_000)
+# the serving workloads' graphs (benchmarks/bench_serve_datalog.py sizes,
+# and a sparse n = 10000 graph whose TC closure grows under a 1 % insert)
+SERVE_SPARSE = dict(n=10_000, p=0.00015, seed=1)
+SERVE_DRED = dict(n=1024, p=0.003, seed=0)
+# serve_reads: point queries on READ_QUERIES sources, READ_BATCH at a time;
+# READ_IDLE with no update in flight, then insert/delete rounds (at most
+# READ_ROUNDS) until READ_OVERLAP reads have overlapped the writer
+READ_QUERIES, READ_BATCH, READ_IDLE = 64, 8, 512
+READ_OVERLAP, READ_ROUNDS = 400, 15                  # odd: the last round inserts
+TXN_PROG = """
+tc(x,y) :- arc(x,y).
+tc(x,y) :- rail(x,y).
+tc(x,y) :- tc(x,z), arc(z,y).
+tc(x,y) :- tc(x,z), rail(z,y).
+"""
 
 
 def check(cond: bool, what: str) -> None:
@@ -109,14 +152,23 @@ def time_ms(fn, reps: int = REPS, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def bitmm_bound(a, n: int, n_arrays: int) -> tuple[float, str]:
-    """Least ms of a bit-matrix product with A ``a`` and an n-column B: its
-    ``n_arrays`` word arrays of A's size read or written once, or one
-    multiply-add per set bit of A and column of B at the b1 rate."""
+def bitmm_bound(a, k: int, n_cols: int, c_arrays: int = 1) -> tuple[float, str]:
+    """Least ms of a bit-matrix product of A ``a`` (k columns) with a
+    k × ``n_cols`` B, the larger of two times: the bytes it must move — A
+    read once, only the rows of B that A's set columns select read once,
+    and ``c_arrays`` arrays of C's size read or written once (C; or M read
+    and Δ', M' written) — at the memory rate, and one multiply-add per set
+    bit of A and column of B at the b1 rate."""
     from repro_torch.core.bitmatrix import popcount
 
-    bound_bytes = n_arrays * a.numel() * 4 / HBM_BYTES_PER_S * 1e3
-    bound_ops = 2.0 * int(popcount(a)) * n / B1_OPS_PER_S * 1e3
+    cols_set = torch.zeros(a.shape[1], dtype=torch.int32, device=a.device)
+    for bit in range(32):                  # the OR of A's rows, one packed row
+        cols_set |= ((a >> bit) & 1).amax(dim=0) << bit
+    b_rows = int(popcount(cols_set[None]))
+    words = -(-n_cols // 32)
+    nbytes = (a.numel() + b_rows * words + c_arrays * a.shape[0] * words) * 4
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = 2.0 * int(popcount(a)) * n_cols / B1_OPS_PER_S * 1e3
     return max(bound_bytes, bound_ops), "operations" if bound_ops >= bound_bytes else "bytes"
 
 
@@ -386,6 +438,317 @@ def recsys_phases(dev, cfg, model, bulk_stream, bulk) -> int:
     return serve_launches + retrieval_launches
 
 
+def serve_phases(dev) -> dict:
+    """Phase 6b: the serving layer, one line per workload.  Each timed batch
+    runs with the launch counts set to 0 just before and read just after;
+    every result is held bit for bit against a from-scratch ``Engine.run``
+    of the final EDB.  Returns the ``bitmm`` kernels' launches in the timed
+    batches."""
+    from collections import Counter
+
+    from repro_torch.configs.datalog_workloads import ALL
+    from repro_torch.core import Engine, EngineConfig, bitmatrix
+    from repro_torch.data.graphs import gnp_graph
+    from repro_torch.data.program_facts import csda_facts
+    from repro_torch.kernels import bitmm as kb
+    from repro_torch.serve_datalog import DatalogServer, MaterializedInstance
+
+    totals = {"bitmm": 0, "bitmm_fused_delta": 0}
+
+    def scratch(prog, edb, cfg):
+        """A from-scratch fixpoint on the card: (handle map, seconds)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = Engine(EngineConfig(**cfg), device=dev)
+        eng.run(prog, edb, return_numpy=False)
+        torch.cuda.synchronize()
+        return eng.take_store(), time.perf_counter() - t0
+
+    def same(label, inst, store):
+        """Every relation of the instance's latest epoch equals the
+        from-scratch one, rows and counts, compared on the card."""
+        with inst.pin() as snap:
+            with torch.cuda.device(dev):
+                snap.wait_ready()
+            for name, want in store.items():
+                got = snap.handles[name]
+                check(got.count == want.count,
+                      f"{label}: {name} holds {got.count} rows, from scratch {want.count}")
+                if hasattr(got, "rows"):
+                    check(torch.equal(got.rows[: got.count], want.rows[: want.count]),
+                          f"{label}: {name} differs from the from-scratch fixpoint")
+                else:
+                    check(np.array_equal(got.to_numpy(), want.to_numpy()),
+                          f"{label}: {name} differs from the from-scratch fixpoint")
+        return sum(h.count for h in store.values())
+
+    def batch(inst, ops):
+        """One timed ``apply_txn`` with the launch counts, each product's
+        (M, K) and the ms between CUDA events around each product, plain or
+        fused (recorded on the writer's stream)."""
+        shapes = Counter()
+        events = []
+        saved = bitmatrix.bitmm, bitmatrix.bitmm_fused_delta
+
+        def recording(fn):
+            def call(a, b, *rest):
+                shapes[(a.shape[0], b.shape[0])] += 1
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = fn(a, b, *rest)
+                end.record()
+                events.append((start, end))
+                return out
+            return call
+
+        torch.cuda.synchronize()
+        kb.bitmm.launches = 0
+        kb.bitmm_fused_delta.launches = 0
+        bitmatrix.bitmm, bitmatrix.bitmm_fused_delta = (recording(fn) for fn in saved)
+        t0 = time.perf_counter()
+        try:
+            st = inst.apply_txn(ops)
+            torch.cuda.synchronize()
+        finally:
+            bitmatrix.bitmm, bitmatrix.bitmm_fused_delta = saved
+        seconds = time.perf_counter() - t0
+        used = {"bitmm": kb.bitmm.launches, "bitmm_fused_delta": kb.bitmm_fused_delta.launches}
+        for k in totals:
+            totals[k] += used[k]
+        shapes = {"m_k_count": sorted([m, k, c] for (m, k), c in shapes.items()),
+                  "ms": sum(start.elapsed_time(end) for start, end in events)}
+        return st, seconds, used, shapes
+
+    def report(label, st, seconds, used, shapes, scratch_s, facts, **extra):
+        emit(label, modes=st.modes, iterations=st.iterations, inserted=st.inserted,
+             removed=st.removed, derived=st.derived, retracted=st.retracted,
+             epoch=st.epoch, launches=used, products=shapes,
+             batch_seconds=seconds, scratch_seconds=scratch_s, facts=facts, **extra)
+
+    def insert_workload(label, prog, edb_full, rel, cfg, spare=0):
+        """Materialize at 99 % of the EDB, one warm-up batch, then the timed
+        1 % insert (held-out rows avoid the relation's largest id, so the
+        batch stays inside the active domain).  ``spare`` more batches are
+        held out and returned for later phases."""
+        edb_full = {k: np.asarray(v, np.int32) for k, v in edb_full.items()}
+        k = max(len(edb_full[rel]) // 100, 1)
+        vals = edb_full[rel].max(axis=1)
+        cand = np.flatnonzero(vals < vals.max())[-(k * (2 + spare)):]
+        mask = np.ones(len(edb_full[rel]), bool)
+        mask[cand] = False
+        warm, held = edb_full[rel][cand[:k]], edb_full[rel][cand[k:2 * k]]
+        later = edb_full[rel][cand[2 * k:]]
+        base = dict(edb_full)
+        base[rel] = edb_full[rel][mask]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inst = MaterializedInstance(prog, base, EngineConfig(**cfg), device=dev)
+        torch.cuda.synchronize()
+        materialize_s = time.perf_counter() - t0
+        inst.apply_txn([("insert", rel, warm)])
+        st, seconds, used, shapes = batch(inst, [("insert", rel, held)])
+        final = dict(base)
+        final[rel] = np.concatenate([base[rel], warm, held])
+        store, scratch_s = scratch(prog, final, cfg)
+        facts = same(label, inst, store)
+        report(label, st, seconds, used, shapes, scratch_s, facts, batch_rows=len(held),
+               edb_rows=len(final[rel]), materialize_seconds=materialize_s)
+        del store
+        return inst, st, shapes, later, final
+
+    def delete_workload(label, prog, edb_full, rel, cfg):
+        """Materialize the whole EDB, one warm-up delete and re-insert, then
+        the timed 1 % delete."""
+        edb_full = {k: np.asarray(v, np.int32) for k, v in edb_full.items()}
+        k = max(len(edb_full[rel]) // 100, 1)
+        inst = MaterializedInstance(prog, edb_full, EngineConfig(**cfg), device=dev)
+        warm = edb_full[rel][:k]
+        inst.apply_txn([("delete", rel, warm)])
+        inst.apply_txn([("insert", rel, warm)])
+        st, seconds, used, shapes = batch(inst, [("delete", rel, edb_full[rel][-k:])])
+        shrunk = dict(edb_full)
+        shrunk[rel] = edb_full[rel][:-k]
+        store, scratch_s = scratch(prog, shrunk, cfg)
+        facts = same(label, inst, store)
+        report(label, st, seconds, used, shapes, scratch_s, facts, batch_rows=k,
+               edb_rows=len(shrunk[rel]))
+        del store, inst
+        return st, used
+
+    sparse = gnp_graph(SERVE_SPARSE["n"], p=SERVE_SPARSE["p"], seed=SERVE_SPARSE["seed"])
+    n = SERVE_SPARSE["n"]
+
+    # -- TC and SG on PBME: the increments at row-compacted shapes -------------
+    tc_inst = None
+    for label, wl in (("serve_tc_pbme", "tc"), ("serve_sg_pbme", "sg")):
+        inst, st, shapes, later, final = insert_workload(
+            label, ALL[wl].program, {"arc": sparse}, "arc", {"backend": "auto"},
+            spare=1 if wl == "tc" else 0)
+        check(set(st.modes.values()) == {"bitmatrix"}, f"{label} ran {st.modes}")
+        check(any(m < n for m, _k, _c in shapes["m_k_count"]),
+              f"{label}: no bitmm launch at M < n")
+        if wl == "tc":
+            tc_inst, tc_later, tc_final = inst, later, final
+        else:
+            check(any(k < n for _m, k, _c in shapes["m_k_count"]),
+                  f"{label}: no sandwich launch at K < n")
+            del inst
+        torch.cuda.empty_cache()
+
+    # -- reads through DatalogServer, idle and while the writer runs -----------
+    srv = DatalogServer(tc_inst, max_batch=READ_BATCH)
+    srcs = [int(v) for v in np.random.default_rng(0).integers(0, n, size=READ_QUERIES)]
+    read_rids, overlapped, idle, during, rounds = set(), set(), [], [], []
+
+    def read_batch(i):
+        """READ_BATCH point queries submitted together and served by one
+        ``step``: a closed loop of one batch in flight."""
+        rids = [srv.submit_query("tc", src=srcs[(i + j) % READ_QUERIES])
+                for j in range(READ_BATCH)]
+        read_rids.update(rids)
+        while any(r not in srv.done for r in rids):
+            srv.step()
+
+    def latencies(rids):
+        """Per request, submit to reply: queue time plus its batch's time."""
+        return {r.rid: (r.queued_seconds + r.service_seconds * r.batch_size) * 1e3
+                for r in srv.stats.snapshot() if r.rid in rids}
+
+    for i in range(0, READ_IDLE, READ_BATCH):
+        read_batch(i)
+    idle = list(latencies(read_rids).values())
+    # insert and delete the held-out 1 % in turn, reads in flight all along,
+    # until enough reads overlapped a writer; the last round is an insert
+    while len(rounds) % 2 == 0 or (len(rounds) < READ_ROUNDS
+                                   and len(overlapped) < READ_OVERLAP):
+        op = "delete" if len(rounds) % 2 else "insert"
+        read_rids.clear()
+        e0, give_up = tc_inst.epoch, time.perf_counter() + 60
+        rid = srv.submit_txn([(op, "arc", tc_later)])
+        srv.step()                                     # starts the writer
+        i = 0
+        while tc_inst.epoch == e0 and time.perf_counter() < give_up:
+            read_batch(i)
+            i += READ_BATCH
+        srv.run()
+        update = srv.done[rid]
+        check(not isinstance(update, Exception), f"serve_reads: the {op} failed: {update}")
+        lat = latencies(read_rids)
+        recs = [r for r in srv.stats.snapshot() if r.rid in lat and r.concurrent]
+        overlapped.update(r.rid for r in recs)
+        during.extend(lat[r.rid] for r in recs)
+        rounds.append({"op": op, "modes": update.modes, "seconds": update.seconds,
+                       "derived": update.derived, "retracted": update.retracted,
+                       "reads": len(lat), "overlapped": len(recs)})
+    rids = [srv.submit_query("tc", src=v) for v in srcs]
+    srv.run()
+    full = dict(tc_final)
+    full["arc"] = np.concatenate([tc_final["arc"], tc_later])
+    store, _ = scratch(ALL["tc"].program, full, {"backend": "auto"})
+    tc_rows = store["tc"].rows[: store["tc"].count]
+    for v, r in zip(srcs, rids):
+        want = tc_rows[tc_rows[:, 0] == v].cpu().numpy()
+        check(np.array_equal(srv.done[r], want), f"serve_reads: tc(src={v}) is not exact")
+    emit("serve_reads", max_batch=READ_BATCH, latency="submit to reply, ms",
+         idle={"reads": len(idle), "p50_ms": statistics.median(idle),
+               "p99_ms": percentile(idle, 99)},
+         during_update={"reads": len(during),
+                        "p50_ms": statistics.median(during) if during else None,
+                        "p99_ms": percentile(during, 99) if during else None},
+         rounds=rounds, exact=True)
+    check(len(during) > 0, "serve_reads: no read overlapped an update")
+    del srv, tc_inst, store, tc_rows
+    torch.cuda.empty_cache()
+
+    # -- a 1 % delete on G10K: the fused kernel recomputes 10^8 facts ----------
+    st, used = delete_workload("serve_tc_pbme_delete", ALL["tc"].program,
+                               {"arc": gnp_graph(G10K, p=0.001, seed=1)}, "arc",
+                               {"backend": "auto"})
+    check(st.modes == {0: "full"} and used["bitmm_fused_delta"] > 0,
+          f"serve_tc_pbme_delete ran {st.modes} with {used}")
+    torch.cuda.empty_cache()
+
+    # -- DRed on the tuple backend ---------------------------------------------
+    st, _ = delete_workload("serve_tc_dred", ALL["tc"].program,
+                            {"arc": gnp_graph(SERVE_DRED["n"], p=SERVE_DRED["p"],
+                                              seed=SERVE_DRED["seed"])},
+                            "arc", {"backend": "tuple"})
+    check(st.modes == {0: "dred"}, f"serve_tc_dred ran {st.modes}")
+
+    # -- CSDA: the delta path ----------------------------------------------------
+    _inst, st, *_ = insert_workload("serve_csda", ALL["csda"].program,
+                                    csda_facts(3000, seed=0), "arc", {"backend": "tuple"})
+    check("delta" in st.modes.values(), f"serve_csda ran {st.modes}")
+    del _inst
+    torch.cuda.empty_cache()
+
+    # -- one transaction against two ---------------------------------------------
+    serve_txn_phase(dev, scratch, same)
+    return totals
+
+
+def serve_txn_phase(dev, scratch, same) -> None:
+    """``benchmarks/bench_serve_datalog.py``'s two-relation transaction: twin
+    chains in ``arc`` and ``rail``; insert into one, retract from the other,
+    through ``DatalogServer``, once as two requests and once as one."""
+    import warnings
+
+    from repro_torch.core import EngineConfig
+    from repro_torch.serve_datalog import DatalogServer, MaterializedInstance
+
+    n_chains, chain_len = 4, 120
+    edges = np.concatenate([
+        np.stack([np.arange(c * chain_len, (c + 1) * chain_len - 1),
+                  np.arange(c * chain_len, (c + 1) * chain_len - 1) + 1], axis=1)
+        for c in range(n_chains)]).astype(np.int32)
+    k = max(len(edges) // 100, 1) // 2 or 1
+    ins_pos = 30 + np.arange(k)
+    dels = edges[(chain_len - 1) + 30 : (chain_len - 1) + 30 + k]
+    ins = edges[ins_pos]
+    mask = np.ones(len(edges), bool)
+    mask[ins_pos] = False
+    base_arc, rail = edges[mask], edges[mask]
+    inst = MaterializedInstance(TXN_PROG, {"arc": base_arc, "rail": rail},
+                                EngineConfig(backend="tuple"), device=dev)
+    srv = DatalogServer(inst)
+    fwd = [("insert", "arc", ins), ("delete", "rail", dels)]
+    inv = [("delete", "arc", ins), ("insert", "rail", dels)]
+    for ops in ([fwd[0]], [fwd[1]], inv, fwd, inv):     # warm, back to base
+        inst.apply_txn(ops)
+
+    e0 = inst.epoch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        srv.submit_insert("arc", ins)
+        srv.submit_delete("rail", dels)
+    srv.run()
+    torch.cuda.synchronize()
+    seq_s, seq_epochs = time.perf_counter() - t0, inst.epoch - e0
+    inst.apply_txn(inv)
+
+    e0 = inst.epoch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rid = srv.submit_txn(fwd)
+    srv.run()
+    torch.cuda.synchronize()
+    txn_s, txn_epochs = time.perf_counter() - t0, inst.epoch - e0
+    st = srv.done[rid]
+    check(not isinstance(st, Exception), f"serve_txn: the transaction failed: {st}")
+    final_rail = np.array(sorted(set(map(tuple, rail.tolist()))
+                                 - set(map(tuple, dels.tolist()))), np.int32)
+    store, scratch_s = scratch(TXN_PROG, {"arc": np.concatenate([base_arc, ins]),
+                                          "rail": final_rail}, {"backend": "tuple"})
+    facts = same("serve_txn", inst, store)
+    check((txn_epochs, seq_epochs) == (1, 2),
+          f"serve_txn published {txn_epochs} epoch(s) as one transaction, {seq_epochs} as two")
+    emit("serve_txn", modes=st.modes, iterations=st.iterations, ops=len(st.ops),
+         txn_epochs=txn_epochs, sequential_epochs=seq_epochs, txn_seconds=txn_s,
+         sequential_seconds=seq_s, scratch_seconds=scratch_s, facts=facts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no GPU to drive",
@@ -479,12 +842,12 @@ def main() -> int:
         library_ms = time_ms(lambda: torch.matmul(af, bf))
         del af, bf
         row = {}
-        for name, kernel, plain, n_arrays in (
-            ("bitmm", lambda: kb.bitmm(a, arc), lambda: bitmm_plain(a, arc), 3),
+        for name, kernel, plain, c_arrays in (
+            ("bitmm", lambda: kb.bitmm(a, arc), lambda: bitmm_plain(a, arc), 1),
             ("bitmm_fused_delta", lambda: kb.bitmm_fused_delta(a, arc, cur),
-             lambda: bitmm_fused_delta_plain(a, arc, cur), 5),
+             lambda: bitmm_fused_delta_plain(a, arc, cur), 3),
         ):
-            bound_ms, bound_by = bitmm_bound(a, G10K, n_arrays)
+            bound_ms, bound_by = bitmm_bound(a, G10K, G10K, c_arrays)
             row[name] = {
                 "ms": time_ms(kernel),
                 "plain_ms": time_ms(plain),
@@ -495,8 +858,37 @@ def main() -> int:
             }
         main_shape[label] = row
         torch.cuda.empty_cache()
+    # the serving increments' shapes: M frontier rows against the arc (rows of
+    # the arc, and dense rows as a closure's frontier is), and the sandwich
+    # product's K = k (A the transpose of k rows of the arc, B k dense rows)
+    serve_shapes = {"M": {}, "K": {}}
+    for m_rows in SERVE_M:
+        rows = torch.randperm(G10K, generator=gen, device=dev)[:m_rows]
+        for label, a in (("arc_rows", arc[rows].contiguous()), ("dense", bits(m_rows, G10K, 0.5))):
+            got, want = kb.bitmm(a, arc), bitmm_plain(a, arc)
+            err["bitmm"] = max(err["bitmm"], max_abs_err(got, want))
+            check(torch.equal(got, want), f"bitmm differs from plain at M={m_rows}, A {label}")
+            bound_ms, bound_by = bitmm_bound(a, G10K, G10K)
+            serve_shapes["M"][f"{m_rows}/{label}"] = {
+                "ms": time_ms(lambda: kb.bitmm(a, arc)), "bound_ms": bound_ms,
+                "bound_by": bound_by, "a_density": int(popcount(a)) / (m_rows * G10K)}
+            compared += 1
+    for k_rows in SERVE_K:
+        rows = torch.randperm(G10K, generator=gen, device=dev)[:k_rows]
+        for label, a in (("arc_t", transpose_packed(arc[rows].contiguous(), G10K)),
+                         ("dense", bits(G10K, k_rows, 0.5))):
+            b = bits(k_rows, G10K, 0.3)
+            got, want = kb.bitmm(a, b), bitmm_plain(a, b)
+            err["bitmm"] = max(err["bitmm"], max_abs_err(got, want))
+            check(torch.equal(got, want), f"bitmm differs from plain at K={k_rows}, A {label}")
+            bound_ms, bound_by = bitmm_bound(a, k_rows, G10K)
+            serve_shapes["K"][f"{k_rows}/{label}"] = {
+                "ms": time_ms(lambda: kb.bitmm(a, b)), "bound_ms": bound_ms,
+                "bound_by": bound_by, "a_density": int(popcount(a)) / (G10K * k_rows)}
+            compared += 1
+        del a, b, got, want
     emit("kernels", exact_cases=compared, max_abs_err=err, n=G10K,
-         shape=[G10K, 313], main_shape=main_shape)
+         shape=[G10K, 313], main_shape=main_shape, serve_shapes=serve_shapes)
 
     del main_a, cur
     torch.cuda.empty_cache()
@@ -554,7 +946,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return [{"kernel": name, "ms": start.elapsed_time(end),
                  "a_density": int(popcount(a)) / (a.shape[0] * n),
-                 "bound_ms": bitmm_bound(a, n, 5 if name == "bitmm_fused_delta" else 3)[0]}
+                 "bound_ms": bitmm_bound(a, n, n, 3 if name == "bitmm_fused_delta" else 1)[0]}
                 for name, a, start, end in records]
 
     launches = {"bitmm": 0, "bitmm_fused_delta": 0}
@@ -633,6 +1025,11 @@ def main() -> int:
     check(read_launches() == {"bitmm": 0, "bitmm_fused_delta": 0},
           "the tuple workloads launched PBME kernels")
 
+    # -- 6b. the serving layer -------------------------------------------------------
+    # counted apart: ``launches`` stays the TC/SG main path's count
+    serve_launches = serve_phases(dev)
+    serve_launches["gather_sum"] = 0
+
     # -- 7-9. the two-tower serving path at FULL ----------------------------------
     model = TwoTower(FULL, torch.Generator(device=dev).manual_seed(0), device=dev)
     bulk_stream = RecsysStream(FULL.user_vocab, FULL.item_vocab, FULL.user_fields,
@@ -661,6 +1058,7 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{sources[name][0]}",
             "replaces": sources[name][1],
             "launches": launches[name],
+            "serve_launches": serve_launches[name],
             "max_abs_err": err[name],
             "ms": timed[name]["ms"],
             "plain_ms": timed[name]["plain_ms"],

@@ -11,7 +11,12 @@ set-difference fused into the epilogue::
     M   = M | Δ'           (merge = bit or)
 
 Every product goes through :mod:`repro_torch.kernels.bitmm`: the CUDA kernel
-for a CUDA tensor, the plain version for a CPU one.
+for a CUDA tensor, the plain version for a CPU one.  The serving layer's
+increments (``tc_increment``, ``sg_increment``) multiply a *row-compacted*
+frontier: the k rows of Δ that hold a bit are gathered and the kernel runs
+at M = k (and, in SG's sandwich product, K = k), since it takes any M and K;
+the product is scattered back into n rows.  The reference skips compaction
+when it runs its Pallas kernel and pays the full n³ product there.
 
 Pattern matching: a stratum qualifies for PBME when it is a recursive binary
 IDB whose rules are TC-shaped (ΔM ⊛ E) or SG-shaped (Eᵀ ⊛ ΔM ⊛ E), with no
@@ -63,8 +68,16 @@ def popcount(packed: torch.Tensor) -> torch.Tensor:
     return _popcount_words(packed).sum(dtype=torch.int64)
 
 
-def transpose_packed(packed: torch.Tensor, n: int) -> torch.Tensor:
-    return pack_bits(unpack_bits(packed, n).T)
+def popcount_rows(packed: torch.Tensor) -> torch.Tensor:
+    """Per-row set-bit counts — the frontier-compaction statistic, int32."""
+    return _popcount_words(packed).sum(dim=1, dtype=torch.int32)
+
+
+def transpose_packed(packed: torch.Tensor, cols: int) -> torch.Tensor:
+    """The transpose of a packed ``rows × cols`` bit matrix: ``int32[rows,
+    ceil(cols/32)]`` → ``int32[cols, ceil(rows/32)]``.  Square (n × n) on
+    the fixpoint paths; rectangular (k × n → n × k) in the sandwich product."""
+    return pack_bits(unpack_bits(packed, cols).T)
 
 
 # --------------------------------------------------------------------------
@@ -114,6 +127,175 @@ def sg_fixpoint(
 
 
 # --------------------------------------------------------------------------
+# row-compacted products and the serving increments
+# --------------------------------------------------------------------------
+
+
+def _frontier_rows(delta: torch.Tensor) -> torch.Tensor:
+    """Indices of the rows of ``delta`` that hold a set bit, on its device.
+
+    ``torch.nonzero`` copies one count to the host: the one sync per call,
+    which doubles as the increments' termination test.
+    """
+    return torch.nonzero(popcount_rows(delta)).flatten()
+
+
+def bitmm_rows(
+    a_packed: torch.Tensor, b_packed: torch.Tensor, n: int, row_idx: torch.Tensor
+) -> torch.Tensor:
+    """Row-compacted boolean product: only the ``row_idx`` rows of A against B.
+
+    The paper's per-row worklists become frontier row compaction: the Δ
+    frontier usually has few nonzero rows, so the work shrinks from n×n×n to
+    |frontier|×n×n.  The result is scattered back into an n-row zero matrix.
+    """
+    return bitmm_chain_rows(a_packed, (b_packed,), n, row_idx)
+
+
+def bitmm_chain_rows(
+    a_packed: torch.Tensor, mats: tuple, n: int, row_idx: torch.Tensor
+) -> torch.Tensor:
+    """Row-compacted product chain: ``A[rows] ⊛ mats[0] ⊛ mats[1] …``.
+
+    The intermediate products stay compacted to the k frontier rows, so each
+    factor is one kernel launch at M = k (any k: the kernel needs no
+    power-of-two bucket, so nothing is padded).  Rows outside ``row_idx``
+    of the result are zero.
+    """
+    sub = a_packed[row_idx]
+    for b_packed in mats:
+        sub = bitmm(sub, b_packed)
+    out = torch.zeros(
+        (a_packed.shape[0], sub.shape[1]), dtype=torch.int32, device=a_packed.device
+    )
+    out[row_idx] = sub
+    return out
+
+
+def _sandwich_rows(
+    delta: torch.Tensor, arc: torch.Tensor, n: int, row_idx: torch.Tensor
+) -> torch.Tensor:
+    """``arcᵀ ⊛ Δ ⊛ arc`` for a *symmetric* Δ whose nonzero rows are
+    ``row_idx`` — both contractions run over the k-row frontier block:
+
+        new(i, j) = OR_{r ∈ R} arc(r, i) · (Δ ⊛ arc)(r, j)
+
+    (Δ symmetric ⇒ the contraction of arcᵀ⊛Δ only ranges over Δ's rows),
+    so the cost is 2·k·n² instead of 2·n³.  Two kernel launches:
+    ``T = Δ[R] ⊛ arc`` at M = k, then ``arc[R]ᵀ ⊛ T`` at K = k, whose A is
+    the rectangular transpose of the k × n block ``arc[R]``.
+    """
+    t = bitmm(delta[row_idx], arc)                                  # k × n
+    return bitmm(transpose_packed(arc[row_idx], n), t)              # n × n
+
+
+def tc_increment(
+    m: torch.Tensor,
+    arc: torch.Tensor,
+    delta_arc: torch.Tensor,
+    n: int,
+    *,
+    max_iters: int = 10_000,
+) -> tuple[torch.Tensor, int]:
+    """Resume TC from its fixpoint after ``arc`` gains ``delta_arc`` edges.
+
+    Insert-only IVM on the bit matrix: every new closure pair decomposes at
+    its *first* new edge into (old path | empty) · Δarc · (suffix in arc′), so
+
+        Δ₀ = (M ⊛ Δarc  |  Δarc) & ~M        # seed: prefix + first new edge
+        Δ  ← (Δ ⊛ arc′) & ~M                 # extend suffix one arc at a time
+
+    ``arc`` must already include the new edges.  The seed's big product is
+    computed transposed (Δarcᵀ ⊛ Mᵀ) so its row frontier is the handful of
+    new-edge heads; loop products compact to the Δ frontier rows whenever
+    the frontier holds at most n // 2 rows.  Returns (new fixpoint,
+    iterations).
+    """
+    dat = transpose_packed(delta_arc, n)
+    heads = _frontier_rows(dat)
+    if len(heads) == 0:
+        return m, 0
+    if len(heads) <= n // 2:
+        ext = transpose_packed(bitmm_rows(dat, transpose_packed(m, n), n, heads), n)
+    else:
+        ext = bitmm(m, delta_arc)
+    delta = (ext | delta_arc) & ~m
+    iters = 0
+    while iters < max_iters:
+        frontier = _frontier_rows(delta)   # doubles as the termination test
+        if len(frontier) == 0:
+            break
+        m = m | delta
+        # extend through the *growing closure*, not just single arcs: old-path
+        # suffix segments absorb in one step (m is transitively closed over
+        # everything absorbed so far), so iterations scale with the number of
+        # new edges on a path, not its length
+        reach = arc | m
+        if len(frontier) <= n // 2:
+            new = bitmm_rows(delta, reach, n, frontier)
+        else:
+            new = bitmm(delta, reach)
+        delta = new & ~m
+        iters += 1
+    return m, iters
+
+
+def sg_increment(
+    sg: torch.Tensor,
+    arc: torch.Tensor,
+    delta_arc: torch.Tensor,
+    n: int,
+    *,
+    max_iters: int = 10_000,
+) -> tuple[torch.Tensor, int]:
+    """Resume SG from its fixpoint after ``arc`` gains ``delta_arc`` edges.
+
+    A new sg pair's derivation tree contains a new component at some level:
+    either a new base pair (arc′ᵀ⊛arc′ & ~I), a new wrapping edge around an
+    *old* sg fact (arc′ᵀ⊛sg⊛Δarc or Δarcᵀ⊛sg⊛arc′), or a new inner sg fact —
+    the last is exactly what the resumed Δ loop derives.  ``arc`` must
+    already include the new edges.
+    """
+    dat = transpose_packed(delta_arc, n)
+    heads = _frontier_rows(dat)              # dst endpoints of the new edges
+    if len(heads) == 0:                      # doubles as the empty-Δ test
+        return sg, 0
+    eye = pack_bits(torch.eye(n, dtype=torch.bool, device=arc.device))
+    if len(heads) <= n // 2:
+        # every seed product has Δarcᵀ as one factor, so chain the whole
+        # thing through its |heads|-row block: k·n² per factor, not n³.
+        # base:  (Δaᵀ⊛arc′ | its transpose) covers base pairs with ≥1 new edge
+        # wraps: arc′ᵀ⊛sg⊛Δa = (Δaᵀ⊛sgᵀ⊛arc′)ᵀ   and   Δaᵀ⊛sg⊛arc′
+        t1 = bitmm_chain_rows(dat, (arc,), n, heads)
+        seed = (t1 | transpose_packed(t1, n)) & ~eye
+        seed = seed | transpose_packed(
+            bitmm_chain_rows(dat, (transpose_packed(sg, n), arc), n, heads), n
+        )
+        seed = seed | bitmm_chain_rows(dat, (sg, arc), n, heads)
+    else:
+        arc_t = transpose_packed(arc, n)
+        seed = bitmm(arc_t, arc) & ~eye
+        seed = seed | bitmm(bitmm(arc_t, sg), delta_arc)
+        seed = seed | bitmm(bitmm(dat, sg), arc)
+    delta = seed & ~sg
+    iters = 0
+    while iters < max_iters:
+        frontier = _frontier_rows(delta)   # doubles as the termination test
+        if len(frontier) == 0:
+            break
+        sg = sg | delta
+        if len(frontier) <= n // 2:
+            # Δ is symmetric throughout (sg and every seed term are), so the
+            # sandwich product contracts over Δ's row block alone
+            new = _sandwich_rows(delta, arc, n, frontier)
+        else:
+            new = bitmm(bitmm(transpose_packed(arc, n), delta), arc)
+        delta = new & ~sg
+        iters += 1
+    return sg, iters
+
+
+# --------------------------------------------------------------------------
 # stratum pattern matching (engine integration)
 # --------------------------------------------------------------------------
 
@@ -147,7 +329,11 @@ def _is_var(t, name=None):
 
 
 def eligible_plan(stratum: Stratum, domain: int, config) -> BitmatrixPlan | None:
-    """The full PBME gate: shape match + backend/memory policy."""
+    """The full PBME gate: shape match + backend/memory policy.
+
+    Shared by the engine's fast path and the serving layer's bit-matrix
+    residency, which must agree on which strata are bit-matrix evaluated.
+    """
     plan, _reason = explain_eligibility(stratum, domain, config)
     return plan
 

@@ -51,7 +51,13 @@ from repro_torch.core.relation import (
     _sorted_by_col,
     next_bucket,
 )
-from repro_torch.core.seminaive import RuleVariant, delta_variants
+from repro_torch.core.seminaive import (
+    NABLA,
+    RuleVariant,
+    delta_variants,
+    deletion_variants,
+    rederive_seed_variants,
+)
 from repro_torch.core.setdiff import DSDState, set_difference
 from repro_torch.obs.trace import TRACER as _TRACE
 from repro_torch.relational.sort import SENTINEL
@@ -146,6 +152,11 @@ def _empty_view(arity: int, domain: int, device: torch.device) -> TupleView:
 
 
 class Engine:
+    #: Plan-time cardinality estimates (``repro_torch.obs.explain.
+    #: PlanEstimate``), attached by the serving layer at plan admission; the
+    #: engine only reads ``est_rows`` off it to annotate stratum spans.
+    estimates = None
+
     def __init__(self, config: EngineConfig | None = None, device=None):
         self.config = config or EngineConfig()
         self.device = torch.device("cuda" if device is None else device)
@@ -229,6 +240,14 @@ class Engine:
 
     # -- stratum evaluation -------------------------------------------------
 
+    def _estimated_rows(self, stratum: Stratum) -> float | None:
+        """Plan-time estimate for this stratum, if the serving layer set one."""
+        est = self.estimates
+        if est is None:
+            return None
+        se = est.stratum(stratum.index)
+        return se.est_rows if se is not None else None
+
     def _note_stratum_actuals(
         self, stratum: Stratum, store: dict[str, Any], t0: float
     ) -> dict[str, int]:
@@ -259,6 +278,9 @@ class Engine:
                     rows=sum(rows.values()),
                     seconds=self.stats.stratum_seconds[stratum.index],
                 )
+                est = self._estimated_rows(stratum)
+                if est is not None:
+                    sp.set(est_rows=est)
             self.stats.backend_used[stratum.preds[0]] = "bitmatrix"
             self.stats.iterations[stratum.index] = plan.iterations
             return
@@ -283,6 +305,9 @@ class Engine:
                 rows=sum(rows.values()),
                 seconds=self.stats.stratum_seconds[stratum.index],
             )
+            est = self._estimated_rows(stratum)
+            if est is not None:
+                sp.set(est_rows=est)
 
     def _seminaive_loop(
         self,
@@ -293,10 +318,17 @@ class Engine:
         deltas: dict[str, TupleView | None],
         dsd_state: dict[str, DSDState],
         groups: dict[str, list[RuleVariant]],
+        start_iteration: int = 0,
     ) -> None:
-        """The per-stratum iteration loop of Algorithm 1."""
+        """The per-stratum iteration loop of Algorithm 1, resumable.
+
+        With ``start_iteration > 0`` and externally seeded ``deltas``
+        (incremental view maintenance: new EDB facts become ΔR and iteration
+        continues from where the fixpoint left off) only the Δ-variants
+        fire, never the base rules.
+        """
         cfg = self.config
-        iteration = 0
+        iteration = start_iteration
         while True:
             any_delta = False
             it_span = _TRACE.span(
@@ -363,8 +395,13 @@ class Engine:
         strat: Stratification,
         stratum: Stratum,
         store: dict[str, Any],
+        fresh: bool = True,
     ) -> dict[str, str]:
-        """Choose the physical representation per IDB (dense specializations)."""
+        """Choose the physical representation per IDB (dense specializations).
+
+        ``fresh=False`` keeps a handle the store already holds (the serving
+        layer resumes a materialized stratum) and only reports its kind.
+        """
         cfg = self.config
         kinds: dict[str, str] = {}
         for pred in stratum.preds:
@@ -393,17 +430,20 @@ class Engine:
             )
             if dense_agg:
                 kinds[pred] = "dense_agg"
-                store[pred] = DenseAggRelation.empty(
-                    pred, self.domain, next(iter(agg_ops)), self.device
-                )
+                if fresh or pred not in store:
+                    store[pred] = DenseAggRelation.empty(
+                        pred, self.domain, next(iter(agg_ops)), self.device
+                    )
             elif dense_set:
                 kinds[pred] = "dense_set"
-                store[pred] = DenseSetRelation.empty(pred, self.domain, self.device)
+                if fresh or pred not in store:
+                    store[pred] = DenseSetRelation.empty(pred, self.domain, self.device)
             else:
                 kinds[pred] = "tuple"
-                store[pred] = TupleRelation.empty(
-                    pred, arity, self.domain, self.device, cfg.capacity_min
-                )
+                if fresh or pred not in store:
+                    store[pred] = TupleRelation.empty(
+                        pred, arity, self.domain, self.device, cfg.capacity_min
+                    )
         self._kinds = kinds
         return kinds
 
@@ -507,6 +547,186 @@ class Engine:
         dcap = next_bucket(max(delta_count, 1), cfg.capacity_min)
         deltas[pred] = TupleView(delta_rows[:dcap], delta_count, self.domain)
         return rec
+
+    # -- DRed retraction: the over-delete / re-derive pass ---------------------
+
+    def dred_stratum(
+        self,
+        strat: Stratification,
+        stratum: Stratum,
+        store: dict[str, Any],
+        store_old: dict[str, Any],
+        deleted: dict[str, "TupleView"],
+        changed: dict[str, "TupleView"],
+        handles: dict[str, str],
+        loop_groups: dict[str, list[RuleVariant]] | None = None,
+    ) -> tuple[int, dict[str, "TupleView"], dict[str, "TupleView"]]:
+        with _TRACE.span(
+            "dred", "engine", stratum=stratum.index,
+            seeds_deleted=len(deleted), seeds_changed=len(changed),
+        ) as sp:
+            iters, net_deleted, net_added = self._dred_stratum_impl(
+                strat, stratum, store, store_old, deleted, changed,
+                handles, loop_groups,
+            )
+            sp.set(
+                iterations=iters,
+                net_deleted=sum(v.count for v in net_deleted.values()),
+                net_added=sum(v.count for v in net_added.values()),
+            )
+            return iters, net_deleted, net_added
+
+    def _dred_stratum_impl(
+        self,
+        strat: Stratification,
+        stratum: Stratum,
+        store: dict[str, Any],
+        store_old: dict[str, Any],
+        deleted: dict[str, "TupleView"],
+        changed: dict[str, "TupleView"],
+        handles: dict[str, str],
+        loop_groups: dict[str, list[RuleVariant]] | None = None,
+    ) -> tuple[int, dict[str, "TupleView"], dict[str, "TupleView"]]:
+        """Delete-and-rederive for one tuple-backed stratum (DRed).
+
+        ``deleted`` maps externally-shrunk relations (EDB or upstream IDBs) to
+        their ∇ views; ``changed`` maps externally-grown ones to Δ views;
+        ``store_old`` is the pre-update state of every relation (immutable
+        handles — a shallow snapshot).  A write transaction's whole mixed
+        Δ/∇ seed set is handled in this ONE visit.  Three passes:
+
+        1. **Over-delete** — propagate ∇ through the stratum's rules with the
+           non-∇ atoms read from ``store_old`` (a derivation is counted in the
+           state it was made in), removing derived heads from the live store;
+           the removed tuples are the next round's frontier, until empty.
+        2. **Re-derive + ingest** — for every over-deleted tuple, a
+           ∇-guarded variant of each rule re-checks derivability against the
+           post-deletion state; together with ingest variants for upstream
+           insertions these seed ΔR, and the resumable semi-naïve loop runs
+           from iteration 1 to the new fixpoint.
+        3. **Net diff** — old vs. new per predicate, returned as
+           ``(iterations, net_deleted, net_added)`` views for downstream
+           strata.  The result is bit-for-bit the from-scratch fixpoint.
+        """
+        cfg = self.config
+        self._kinds = handles
+
+        # -- pass 1: over-delete to a fixpoint of the deletion frontier ----
+        nabla: dict[str, TupleRelation] = {}
+        frontier: dict[str, TupleView] = dict(deleted)
+        rounds = 0
+        while frontier:
+            rounds += 1
+            with _TRACE.span(
+                "overdelete", "engine", stratum=stratum.index, round=rounds,
+                frontier={p: v.count for p, v in frontier.items()}
+                if _TRACE.enabled else None,
+            ):
+                groups_del = deletion_variants(stratum, set(frontier))
+                next_frontier: dict[str, TupleView] = {}
+                for pred in stratum.preds:
+                    bufs = []
+                    for var in groups_del[pred]:
+                        res = self._eval_variant(
+                            strat, stratum, store_old, frontier, var
+                        )
+                        if res is not None:
+                            bufs.append(res)
+                    if not bufs:
+                        continue
+                    cand = torch.cat([b[0] for b in bufs], dim=0)
+                    cand = _sort_pad(
+                        cand, next_bucket(cand.shape[0], cfg.capacity_min), self.domain
+                    )
+                    cand, _ = _dedup_sorted(cand, self.domain)
+                    new_h, removed, r_count = store[pred].delete_rows(cand)
+                    if r_count == 0:
+                        continue
+                    store[pred] = new_h
+                    dcap = next_bucket(r_count, cfg.capacity_min)
+                    next_frontier[pred] = TupleView(
+                        removed[:dcap], r_count, self.domain
+                    )
+                    acc = nabla.get(pred) or TupleRelation.empty(
+                        pred, strat.pred_arity(pred), self.domain, self.device,
+                        cfg.capacity_min,
+                    )
+                    nabla[pred] = acc.merge(removed, r_count)
+                frontier = next_frontier
+
+        # -- pass 2: ∇-guarded re-derivation + upstream-Δ ingest, then loop --
+        deltas: dict[str, TupleView | None] = {p: None for p in stratum.preds}
+        deltas.update(changed)
+        dsd_state = {p: DSDState(alpha=cfg.alpha) for p in stratum.preds}
+        for pred, acc in nabla.items():
+            deltas[NABLA + pred] = TupleView(acc.rows, acc.count, self.domain)
+        seed_groups = rederive_seed_variants(stratum, set(changed), nabla)
+        for pred in stratum.preds:
+            if not seed_groups[pred]:
+                continue
+            with _TRACE.span(
+                "rule", "engine", pred=pred, stratum=stratum.index,
+                phase="rederive", variants=len(seed_groups[pred]),
+            ) as rule_span:
+                rec = self._eval_idb_iteration(
+                    strat, stratum, store, handles, deltas, dsd_state,
+                    pred, seed_groups[pred], 0,
+                )
+                rule_span.set(candidates=rec.candidates, delta=rec.delta)
+            self.stats.records.append(rec)
+        if stratum.recursive:
+            self._seminaive_loop(
+                strat, stratum, store, handles, deltas, dsd_state,
+                loop_groups or delta_variants(stratum), start_iteration=1,
+            )
+
+        # -- pass 3: net old-vs-new diff for downstream strata -------------
+        net_deleted: dict[str, TupleView] = {}
+        net_added: dict[str, TupleView] = {}
+        for pred in stratum.preds:
+            old_h, new_h = store_old[pred], store[pred]
+            if new_h is old_h:
+                continue     # zero-delta merges return the same handle
+            acc = nabla.get(pred)
+            if not changed and acc is not None:
+                # Pure retraction: positive programs are monotone, so the new
+                # fixpoint ⊆ the old one — nothing was net-added, and the net
+                # deletions are exactly the ∇ tuples that re-derivation did
+                # NOT restore.  Probe |∇| rows instead of the whole relation.
+                rows, count, _ = set_difference(
+                    acc.rows, acc.count, new_h.rows, new_h.count,
+                    self.domain, DSDState(),
+                )
+                if count:
+                    net_deleted[pred] = TupleView(
+                        rows[: next_bucket(count, cfg.capacity_min)],
+                        count,
+                        self.domain,
+                    )
+                continue
+            # Mixed upstream diff (deletions + insertions): the stratum can
+            # both shrink and grow — fall back to full both-way diffs.
+            for src, dst, out in (
+                (old_h, new_h, net_deleted),
+                (new_h, old_h, net_added),
+            ):
+                if src.count == 0:
+                    continue
+                rows, count, _ = set_difference(
+                    src.rows, src.count, dst.rows, dst.count,
+                    self.domain, DSDState(),
+                )
+                if count:
+                    out[pred] = TupleView(
+                        rows[: next_bucket(count, cfg.capacity_min)],
+                        count,
+                        self.domain,
+                    )
+        iters = rounds + (
+            self.stats.iterations.get(stratum.index, 0) if stratum.recursive else 0
+        )
+        self.stats.iterations[stratum.index] = iters
+        return iters, net_deleted, net_added
 
     # -- body evaluation ------------------------------------------------------
 

@@ -212,6 +212,11 @@ class TupleRelation:
             return self, empty_delta(self.arity, self.device), 0
         return TupleRelation(self.name, self.arity, kept, k_count, self.domain), removed, r_count
 
+    def device_buffers(self) -> tuple[torch.Tensor, ...]:
+        """Every tensor this handle owns (reclamation accounting), the
+        per-column sort copies cached by :meth:`sorted_by` included."""
+        return (self.rows, *(a for pair in self._by_col.values() for a in pair))
+
     def to_numpy(self) -> np.ndarray:
         return self.rows[: self.count].cpu().numpy()
 
@@ -267,6 +272,10 @@ class DenseSetRelation:
         return DenseSetRelation(
             self.name, self.n, member, delta, int(member.sum()), int(delta.sum())
         )
+
+    def device_buffers(self) -> tuple[torch.Tensor, ...]:
+        """Tensors owned by this handle (reclamation accounting)."""
+        return (self.member, self.delta)
 
     def delta_tuples(self, capacity: int) -> tuple[torch.Tensor, int]:
         """Materialize Δ as a (capacity, 1) tuple view for the join machinery."""
@@ -356,6 +365,10 @@ class DenseAggRelation:
             srt != SENTINEL, self.values[torch.clamp(srt, max=self.n - 1).long()], SENTINEL
         )
         return torch.stack([srt, vals], dim=1)
+
+    def device_buffers(self) -> tuple[torch.Tensor, ...]:
+        """Tensors owned by this handle (reclamation accounting)."""
+        return (self.values, self.delta)
 
     def delta_tuples(self, capacity: int) -> tuple[torch.Tensor, int]:
         return self._tuples(self.delta, capacity), self.delta_count

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -26,6 +27,9 @@ FLAGS = (
 )
 
 _libs: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
+# one build at a time: the serving layer's writer thread and a reader may
+# both reach a kernel's first use
+_lock = threading.Lock()
 #: seconds the last :func:`build` spent compiling, and nvcc's messages
 #: (``-Xptxas -v`` register and shared-memory use) per job
 stats: dict[str, object] = {"seconds": 0.0, "log": {}}
@@ -95,12 +99,14 @@ def build_all() -> dict[str, Path]:
 
 def library(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu``, with ``defines``
-    (``"NAME=value"``) passed to ``nvcc`` as ``-D`` flags."""
-    if (name, defines) not in _libs:
-        path = (build_all()[name] if not defines
-                else build({name: (CSRC / f"{name}.cu", defines)})[name])
-        _libs[name, defines] = ctypes.CDLL(str(path))
-    return _libs[name, defines]
+    (``"NAME=value"``) passed to ``nvcc`` as ``-D`` flags.  Thread-safe: the
+    first caller builds and loads, the others wait for it."""
+    with _lock:
+        if (name, defines) not in _libs:
+            path = (build_all()[name] if not defines
+                    else build({name: (CSRC / f"{name}.cu", defines)})[name])
+            _libs[name, defines] = ctypes.CDLL(str(path))
+        return _libs[name, defines]
 
 
 def raise_on(err: int, what: str) -> None:

@@ -25,6 +25,7 @@ from repro_torch.kernels.ref import (
     bitmm_fused_delta_plain, bitmm_plain, gather_sum_plain, pack_bits,
 )
 from repro_torch.models.recsys import TwoTower
+from repro_torch.serve_datalog import MaterializedInstance, PlanCache
 
 pytestmark = pytest.mark.cuda
 
@@ -122,6 +123,54 @@ def test_bit_31_of_every_word(cuda):
     _both_match_plain(a, b, cur)
     assert bool((kb.bitmm(a, b) == -(2**31)).all())
     torch.cuda.synchronize()
+
+
+# the serving increments' shapes: M frontier rows against an n x n matrix
+# (a partial 128-row block, fewer rows than one block, one row), and the
+# sandwich product's K = k (off the 32-bit word and the 1024-bit stage)
+SERVE_N = 3000
+
+
+@pytest.mark.parametrize("m_rows", [1, 7, 128, 129, 1000])
+def test_bitmm_at_frontier_rows(cuda, m_rows):
+    gen = torch.Generator(device=cuda).manual_seed(m_rows)
+    b = pack_bits(torch.rand((SERVE_N, SERVE_N), generator=gen, device=cuda) < 0.001)
+    for density in (0.0005, 0.02, 0.5):
+        a = pack_bits(torch.rand((m_rows, SERVE_N), generator=gen, device=cuda) < density)
+        assert torch.equal(kb.bitmm(a, b), bitmm_plain(a, b))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k_rows", [1, 31, 33, 1024, SERVE_N])
+def test_bitmm_at_sandwich_depths(cuda, k_rows):
+    gen = torch.Generator(device=cuda).manual_seed(k_rows)
+    for a_density, b_density in ((0.001, 0.3), (0.5, 0.02)):
+        a = pack_bits(torch.rand((SERVE_N, k_rows), generator=gen, device=cuda) < a_density)
+        b = pack_bits(torch.rand((k_rows, SERVE_N), generator=gen, device=cuda) < b_density)
+        assert torch.equal(kb.bitmm(a, b), bitmm_plain(a, b))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["tc", "sg"])
+def test_apply_txn_on_cuda_matches_cpu(cuda, name):
+    """One insert through the PBME increments on the card equals the same
+    transaction on the CPU: stats, epochs and every relation."""
+    edges = random_graph(400, 900, seed=3)
+    base, held = np.concatenate([edges[:100], edges[109:]]), edges[100:109]
+    insts = {
+        dev: MaterializedInstance(ALL[name].program, {"arc": base}, EngineConfig(),
+                                  cache=PlanCache(), device=dev)
+        for dev in ("cuda", "cpu")
+    }
+    launches = kb.bitmm.launches
+    stats = {dev: inst.apply_txn([("insert", "arc", held)]) for dev, inst in insts.items()}
+    assert kb.bitmm.launches > launches
+    got, want = stats["cuda"], stats["cpu"]
+    assert got.modes == want.modes == {0: "bitmatrix"}
+    assert (got.iterations, got.derived, got.epoch) == (want.iterations, want.derived, want.epoch)
+    for rel in (name, "arc"):
+        np.testing.assert_array_equal(insts["cuda"].relation(rel), insts["cpu"].relation(rel))
+    assert insts["cuda"].query(name, src=5).tolist() == insts["cpu"].query(name, src=5).tolist()
 
 
 @pytest.mark.parametrize("name", ["tc", "sg", "cspa", "sssp"])

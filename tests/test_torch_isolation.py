@@ -28,6 +28,11 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_port_files_found():
     assert len(PORT_FILES) > 20 and (ROOT / "chip_smoke.py").exists()
+    names = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES[:-1]}
+    for module in ("serve_datalog/instance.py", "serve_datalog/server.py",
+                   "serve_datalog/plan_cache.py", "core/versioned_store.py",
+                   "obs/profile.py", "obs/metrics.py"):
+        assert f"repro_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -45,6 +50,9 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.kernels.gather_sum, repro_torch.relational.segment\n"
         "import repro_torch.relational.embedding, repro_torch.models.recsys.two_tower\n"
         "import repro_torch.configs.two_tower_retrieval, repro_torch.data.recsys_stream\n"
+        "import repro_torch.serve_datalog, repro_torch.serve_datalog.server\n"
+        "import repro_torch.core.versioned_store, repro_torch.obs.profile\n"
+        "import repro_torch.obs.metrics, repro_torch.obs.explain, repro_torch.obs.stats\n"
         "print('ok')\n"
     )
     out = subprocess.run(

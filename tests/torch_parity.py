@@ -6,9 +6,14 @@ packages must agree bit for bit.
 
 import numpy as np
 
+from repro.configs.datalog_workloads import ALL as WORKLOADS
 from repro.core import Engine as RefEngine
 from repro.core import EngineConfig as RefConfig
+from repro.serve_datalog import MaterializedInstance as RefInstance
+from repro.serve_datalog import PlanCache as RefCache
+from repro.serve_datalog import TxnOp as RefTxnOp
 from repro_torch.core import Engine, EngineConfig
+from repro_torch.serve_datalog import MaterializedInstance, PlanCache, TxnOp
 
 
 def record_key(stats):
@@ -60,3 +65,89 @@ def assert_runs_equal(program, edb, **cfg):
         {k: h.to_blocks() for k, h in port.store.items()},
     )
     return ref, port
+
+
+# --------------------------------------------------------------------------
+# the serving layer
+# --------------------------------------------------------------------------
+
+TC = WORKLOADS["tc"].program
+SG = WORKLOADS["sg"].program
+NEG_PROG = """
+tc(x,y) :- arc(x,y).
+tc(x,y) :- tc(x,z), arc(z,y).
+node(x) :- arc(x,y).
+node(y) :- arc(x,y).
+ntc(x,y) :- node(x), node(y), !tc(x,y).
+"""
+TWO_EDB_TC = """
+tc(x,y) :- arc(x,y).
+tc(x,y) :- rail(x,y).
+tc(x,y) :- tc(x,z), arc(z,y).
+tc(x,y) :- tc(x,z), rail(z,y).
+"""
+SSSP_COPY = """
+sssp2(y, MIN(0)) :- id(y).
+sssp2(y, MIN(d1+d2)) :- sssp2(x,d1), arc(x,y,d2).
+copy(x,d) :- sssp2(x,d).
+"""
+
+
+def stats_key(s):
+    """Everything an ``UpdateStats`` says except its wall time."""
+    return (
+        s.relation, s.requested, s.kind, s.inserted, s.removed, s.derived,
+        s.retracted, s.full_rebuild, s.epoch, s.modes, s.iterations,
+        s.derived_by_stratum, [(o.op, o.rel, o.requested, o.applied) for o in s.ops],
+        s.read_set, s.write_set,
+    )
+
+
+def blocks(handles):
+    return {k: h.to_blocks() for k, h in handles.items()}
+
+
+class ServePair:
+    """The reference instance and the port's (on the CPU), kept in step."""
+
+    def __init__(self, prog, edb, **cfg):
+        self.ref = RefInstance(
+            prog, edb, RefConfig(use_pallas_bitmm=False, **cfg), cache=RefCache(),
+            analysis=None,
+        )
+        self.port = MaterializedInstance(
+            prog, edb, EngineConfig(**cfg), cache=PlanCache(), device="cpu"
+        )
+        self.check()
+
+    def txn(self, ops):
+        want = self.ref.apply_txn(
+            [RefTxnOp(o.op, o.rel, o.rows) if isinstance(o, TxnOp) else o for o in ops]
+        )
+        got = self.port.apply_txn(ops)
+        assert stats_key(got) == stats_key(want)
+        self.check()
+        return got
+
+    def insert(self, rel, rows):
+        return self.txn([("insert", rel, rows)])
+
+    def delete(self, rel, rows):
+        return self.txn([("delete", rel, rows)])
+
+    def check(self, ref_snap=None, port_snap=None):
+        assert self.port.epoch == self.ref.epoch
+        assert self.port.domain == self.ref.domain
+        names = sorted(set(self.ref.strat.edb) | set(self.ref.strat.idb))
+        for name in names:
+            want = self.ref.relation(name, snapshot=ref_snap)
+            got = self.port.relation(name, snapshot=port_snap)
+            assert got.dtype == want.dtype, name
+            np.testing.assert_array_equal(got, want, err_msg=name)
+        ref_h = ref_snap.handles if ref_snap is not None else self.ref.store
+        port_h = port_snap.handles if port_snap is not None else self.port.store
+        assert_blocks_equal(blocks(ref_h), blocks(port_h))
+
+
+def stratum_of(inst, pred):
+    return next(s.index for s in inst.strat.strata if pred in s.preds)
