@@ -46,6 +46,26 @@ Phases, one output line each:
    flight, then while the writer thread inserts and deletes a 1 % batch in
    turn until 400 reads have overlapped it; the answers after the last
    insert publishes must be exact);
+6c. durability, run last, after phase 9, so that its gigabyte of files and
+   its pinned host buffers are not around the earlier phases' timings —
+   ``repro_torch.persist`` and warm restore, every root under
+   one temporary directory (removed at the end), each result held bit for
+   bit against the live instance's last epoch and a from-scratch
+   ``Engine.run`` of the final EDB, with seconds, bytes and GB/s:
+   ``durable_tc_pbme`` (the ``serve_tc_pbme`` graph: the baseline snapshot
+   of ``DatalogServer(durability=...)``, a 1 % insert and ``checkpoint_now``,
+   a WAL tail of a 1 % insert and a 1 % delete, then
+   ``MaterializedInstance.restore`` split into the snapshot load and the
+   replay, whose ``bitmm`` and ``bitmm_fused_delta`` launches must both be
+   > 0, and one more 1 % insert on the restored instance),
+   ``durable_g10k`` (TC on G10K, 10^8 facts: baseline and restore with the
+   packed matrices loaded, not re-packed; 512 point reads idle and 512
+   while ``checkpoint_now`` writes on another thread, submit to reply),
+   ``engine_resume`` (CSDA 3000 on the tuple path with ``checkpoint_every=16``,
+   then a fresh engine with ``resume_from``: equal rows, equal iterations
+   after the resume point) and ``scenario_crash`` (a crash while shedding,
+   restored exactly, and the burst scenario through
+   ``repro_torch.loadgen``);
 7. gather_sum — the gather-sum kernel against its plain version at
    ``test_gather_sum_sweep``'s shapes (float32 within 1e-5, bfloat16 within
    2e-2) and at the two-tower path's shapes (``idx int32[262144, 8]`` from
@@ -65,17 +85,26 @@ Phases, one output line each:
 Then a ``kernels`` JSON line (``launches``: each kernel's count on its main
 path — TC and SG at G10K for ``bitmm`` and ``bitmm_fused_delta``, phases 8
 and 9 for ``gather_sum``; ``serve_launches``: the timed serving batches of
-phase 6b), the card's name and power limit, and, last,
-``{"ok": true, "device": ...}``.  Any failure raises and exits non-zero; so
-does a machine without CUDA.
+phase 6b; ``durable_launches``: the durability path's own work in phase
+6c — writes through a durable server, restores with their replay, writes
+on restored instances, checkpointed and resumed engine runs — and not the
+from-scratch references or the live instances built to compare with), the
+card's name and power limit, and, last, ``{"ok": true, "device": ...}``.
+Any failure raises and exits non-zero; so does a machine without CUDA.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -438,6 +467,37 @@ def recsys_phases(dev, cfg, model, bulk_stream, bulk) -> int:
     return serve_launches + retrieval_launches
 
 
+def scratch_fixpoint(dev, prog, edb, cfg):
+    """A from-scratch fixpoint on the card: (handle map, seconds)."""
+    from repro_torch.core import Engine, EngineConfig
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = Engine(EngineConfig(**cfg), device=dev)
+    eng.run(prog, edb, return_numpy=False)
+    torch.cuda.synchronize()
+    return eng.take_store(), time.perf_counter() - t0
+
+
+def same_as_scratch(dev, label, inst, store):
+    """Every relation of the instance's latest epoch equals the from-scratch
+    one, rows and counts, compared on the card; returns the facts."""
+    with inst.pin() as snap:
+        with torch.cuda.device(dev):
+            snap.wait_ready()
+        for name, want in store.items():
+            got = snap.handles[name]
+            check(got.count == want.count,
+                  f"{label}: {name} holds {got.count} rows, from scratch {want.count}")
+            if hasattr(got, "rows"):
+                check(torch.equal(got.rows[: got.count], want.rows[: want.count]),
+                      f"{label}: {name} differs from the from-scratch fixpoint")
+            else:
+                check(np.array_equal(got.to_numpy(), want.to_numpy()),
+                      f"{label}: {name} differs from the from-scratch fixpoint")
+    return sum(h.count for h in store.values())
+
+
 def serve_phases(dev) -> dict:
     """Phase 6b: the serving layer, one line per workload.  Each timed batch
     runs with the launch counts set to 0 just before and read just after;
@@ -447,40 +507,15 @@ def serve_phases(dev) -> dict:
     from collections import Counter
 
     from repro_torch.configs.datalog_workloads import ALL
-    from repro_torch.core import Engine, EngineConfig, bitmatrix
+    from repro_torch.core import EngineConfig, bitmatrix
     from repro_torch.data.graphs import gnp_graph
     from repro_torch.data.program_facts import csda_facts
     from repro_torch.kernels import bitmm as kb
     from repro_torch.serve_datalog import DatalogServer, MaterializedInstance
 
     totals = {"bitmm": 0, "bitmm_fused_delta": 0}
-
-    def scratch(prog, edb, cfg):
-        """A from-scratch fixpoint on the card: (handle map, seconds)."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng = Engine(EngineConfig(**cfg), device=dev)
-        eng.run(prog, edb, return_numpy=False)
-        torch.cuda.synchronize()
-        return eng.take_store(), time.perf_counter() - t0
-
-    def same(label, inst, store):
-        """Every relation of the instance's latest epoch equals the
-        from-scratch one, rows and counts, compared on the card."""
-        with inst.pin() as snap:
-            with torch.cuda.device(dev):
-                snap.wait_ready()
-            for name, want in store.items():
-                got = snap.handles[name]
-                check(got.count == want.count,
-                      f"{label}: {name} holds {got.count} rows, from scratch {want.count}")
-                if hasattr(got, "rows"):
-                    check(torch.equal(got.rows[: got.count], want.rows[: want.count]),
-                          f"{label}: {name} differs from the from-scratch fixpoint")
-                else:
-                    check(np.array_equal(got.to_numpy(), want.to_numpy()),
-                          f"{label}: {name} differs from the from-scratch fixpoint")
-        return sum(h.count for h in store.values())
+    scratch = functools.partial(scratch_fixpoint, dev)
+    same = functools.partial(same_as_scratch, dev)
 
     def batch(inst, ops):
         """One timed ``apply_txn`` with the launch counts, each product's
@@ -747,6 +782,477 @@ def serve_txn_phase(dev, scratch, same) -> None:
     emit("serve_txn", modes=st.modes, iterations=st.iterations, ops=len(st.ops),
          txn_epochs=txn_epochs, sequential_epochs=seq_epochs, txn_seconds=txn_s,
          sequential_seconds=seq_s, scratch_seconds=scratch_s, facts=facts)
+
+
+def dir_bytes(path: str) -> int:
+    """Bytes of every file under ``path``."""
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+def fs_type(path: str) -> str:
+    """The file system ``path`` lies on, as /proc/mounts names it."""
+    best, kind = "", "unknown"
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                mnt, typ = line.split()[1:3]
+                if path.startswith(mnt) and len(mnt) > len(best):
+                    best, kind = mnt, typ
+    except OSError:
+        pass
+    return kind
+
+
+DURABLE_LAUNCHES = {"bitmm": 0, "bitmm_fused_delta": 0, "gather_sum": 0}
+
+
+@contextlib.contextmanager
+def durable_path():
+    """The durability path's own work: every kernel's count set to 0 just
+    before the block and read just after it, and added to
+    ``DURABLE_LAUNCHES``."""
+    from repro_torch.kernels import bitmm as kb
+    from repro_torch.kernels import gather_sum as kg
+
+    counters = {"bitmm": kb.bitmm, "bitmm_fused_delta": kb.bitmm_fused_delta,
+                "gather_sum": kg.gather_sum}
+    for c in counters.values():
+        c.launches = 0
+    try:
+        yield
+    finally:
+        for name, c in counters.items():
+            DURABLE_LAUNCHES[name] += c.launches
+
+
+@contextlib.contextmanager
+def stopwatch(dev, *targets):
+    """Seconds spent in each ``(owner, attribute)`` while the block runs,
+    the device synchronised after each call; the attributes are restored."""
+    spent = {name: 0.0 for _owner, name in targets}
+    saved = [(owner, name, getattr(owner, name)) for owner, name in targets]
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize(dev)
+                spent[name] += time.perf_counter() - t0
+        return call
+
+    for owner, name, fn in saved:
+        setattr(owner, name, timed(name, fn))
+    try:
+        yield spent
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def same_epochs(dev, label, want_inst, got_inst):
+    """The latest epochs of two instances hold the same tables (padding and
+    capacity included), counts and packed PBME words, compared on the card."""
+    with want_inst.pin() as want, got_inst.pin() as got:
+        with torch.cuda.device(dev):
+            want.wait_ready()
+            got.wait_ready()
+        check(want.epoch == got.epoch and want.domain == got.domain,
+              f"{label}: epoch/domain {got.epoch}/{got.domain}, live {want.epoch}/{want.domain}")
+        check(want.handles.keys() == got.handles.keys(), f"{label}: other relations")
+        for name, w in want.handles.items():
+            g = got.handles[name]
+            check(g.count == w.count, f"{label}: {name} holds {g.count} rows, live {w.count}")
+            if hasattr(w, "rows"):
+                check(torch.equal(g.rows, w.rows), f"{label}: {name}'s table differs")
+            else:
+                check(np.array_equal(g.to_numpy(), w.to_numpy()), f"{label}: {name} differs")
+        check((want.meta or {}).keys() == (got.meta or {}).keys(), f"{label}: PBME strata")
+        for idx, st in (want.meta or {}).items():
+            for f in ("arc", "m"):
+                check(torch.equal(got.meta[idx][f], st[f]), f"{label}: PBME {f} differs")
+
+
+def durability_phases(dev) -> dict:
+    """Phase 6c: snapshots, the WAL, warm restore and engine checkpoints on
+    the card, each result held bit for bit against the live instance's last
+    epoch and against a from-scratch ``Engine.run`` of the final EDB.  All
+    roots lie under one temporary directory, removed at the end.  The
+    path's own launches add up in ``DURABLE_LAUNCHES``."""
+    from repro_torch.configs.datalog_workloads import ALL
+    from repro_torch.data.graphs import gnp_graph
+    from repro_torch.kernels import bitmm as kb
+    from repro_torch.persist import DurabilityConfig, codec, list_snapshots
+    from repro_torch.serve_datalog import DatalogServer, MaterializedInstance
+
+    tc = ALL["tc"].program
+    work = tempfile.mkdtemp(prefix="chip_smoke_durability-")
+    fs = fs_type(work)
+
+    def durable(root, **kw):
+        return DurabilityConfig(os.path.join(work, root), checkpoint_every_epochs=0,
+                                checkpoint_wal_bytes=0, **kw)
+
+    def write_timing(fn):
+        """``fn()`` (a snapshot write) on the host clock, with its SHA-256
+        passes and its device → host copies timed apart."""
+        with stopwatch(dev, (codec, "_sha256"), (codec, "relation_to_blocks"),
+                       (codec, "packed_to_disk")) as spent:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            seconds = time.perf_counter() - t0
+        return out, {"seconds": seconds, "sha256_seconds": spent["_sha256"],
+                     "device_to_host_seconds": spent["relation_to_blocks"]
+                     + spent["packed_to_disk"]}
+
+    def restore_timing(root, **kw):
+        """``MaterializedInstance.restore`` on the host clock, split into the
+        snapshot load (of which the SHA-256 pass and the host → device copies)
+        and the WAL replay, with the kernels' launches during the replay."""
+        replay = {"seconds": 0.0}
+        real_replay = MaterializedInstance._replay_wal
+
+        def timed_replay(self, wal, after_epoch):
+            torch.cuda.synchronize()
+            before = (kb.bitmm.launches, kb.bitmm_fused_delta.launches)
+            t0 = time.perf_counter()
+            real_replay(self, wal, after_epoch)
+            torch.cuda.synchronize()
+            replay["seconds"] = time.perf_counter() - t0
+            replay["launches"] = {"bitmm": kb.bitmm.launches - before[0],
+                                  "bitmm_fused_delta": kb.bitmm_fused_delta.launches - before[1]}
+            replay["modes"] = [st.modes for st in self.update_log]
+
+        MaterializedInstance._replay_wal = timed_replay
+        try:
+            with stopwatch(dev, (codec, "_sha256"), (codec, "relation_from_blocks")) as spent:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with durable_path():
+                    inst = MaterializedInstance.restore(os.path.join(work, root),
+                                                        device=dev, **kw)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+        finally:
+            MaterializedInstance._replay_wal = real_replay
+        snap_bytes = dir_bytes(inst.restore_stats["snapshot_path"])
+        load = seconds - replay["seconds"]
+        return inst, {"seconds": seconds, "load_seconds": load,
+                      "sha256_seconds": spent["_sha256"],
+                      "relations_to_device_seconds": spent["relation_from_blocks"],
+                      "snapshot_bytes": snap_bytes, "load_gb_per_s": snap_bytes / load / 1e9,
+                      "replay_seconds": replay["seconds"],
+                      "replay_launches": replay.get("launches", {}),
+                      "replay_modes": replay.get("modes", []),
+                      "restore_stats": {k: v for k, v in inst.restore_stats.items()
+                                        if k != "snapshot_path"}}
+
+    def txn(srv, ops):
+        """One transaction through a durable server: logged, then applied."""
+        with durable_path():
+            rid = srv.submit_txn(ops)
+            srv.run()
+        out = srv.done[rid]
+        check(not isinstance(out, Exception), f"durability: a transaction failed: {out}")
+        return out
+
+    def sized(timing, path):
+        timing["bytes"] = dir_bytes(path)
+        timing["gb_per_s"] = timing["bytes"] / timing["seconds"] / 1e9
+        return timing
+
+    try:
+        # -- durable_tc_pbme: baseline, a checkpoint, a WAL tail, restore ------
+        sparse = gnp_graph(SERVE_SPARSE["n"], p=SERVE_SPARSE["p"], seed=SERVE_SPARSE["seed"])
+        k = len(sparse) // 100
+        vals = sparse.max(axis=1)
+        cand = np.flatnonzero(vals < vals.max())[-3 * k:]    # inside the active domain
+        ins1, ins2, ins3 = (sparse[cand[i * k:(i + 1) * k]] for i in range(3))
+        mask = np.ones(len(sparse), bool)
+        mask[cand] = False
+        base = sparse[mask]
+        dels = base[:k]
+        live = MaterializedInstance(tc, {"arc": base}, device=dev)
+        cfg = durable("tc_pbme")
+        srv, baseline = write_timing(lambda: DatalogServer(live, durability=cfg))
+        baseline = sized(baseline, list_snapshots(cfg.root)[-1])
+        txn(srv, [("insert", "arc", ins1)])
+        path, ckpt = write_timing(srv.checkpoint_now)
+        ckpt = sized(ckpt, path)
+        tail = [txn(srv, [("insert", "arc", ins2)]), txn(srv, [("delete", "arc", dels)])]
+        check([st.modes for st in tail] == [{0: "bitmatrix"}, {0: "full"}],
+              f"durable_tc_pbme: the tail ran {[st.modes for st in tail]}")
+        wal_bytes = srv.durability.wal.size_bytes()
+        srv.close()
+        restored, restore = restore_timing("tc_pbme")
+        used = restore["replay_launches"]
+        check(used["bitmm"] > 0 and used["bitmm_fused_delta"] > 0,
+              f"durable_tc_pbme: the replay launched {used}")
+        check(restore["replay_modes"] == [st.modes for st in tail],
+              f"durable_tc_pbme: the replay ran {restore['replay_modes']}")
+        same_epochs(dev, "durable_tc_pbme", live, restored)
+        final = np.concatenate([base[k:], ins1, ins2])
+        store, _ = scratch_fixpoint(dev, tc, {"arc": final}, {"backend": "auto"})
+        facts = same_as_scratch(dev, "durable_tc_pbme", restored, store)
+        del store
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with durable_path():
+            after = restored.apply_txn([("insert", "arc", ins3)])
+        torch.cuda.synchronize()
+        after_s = time.perf_counter() - t0
+        check(live.apply_txn([("insert", "arc", ins3)]).modes == after.modes == {0: "bitmatrix"},
+              f"durable_tc_pbme: the insert after the restore ran {after.modes}")
+        same_epochs(dev, "durable_tc_pbme after restore", live, restored)
+        store, _ = scratch_fixpoint(dev, tc, {"arc": np.concatenate([final, ins3])},
+                                    {"backend": "auto"})
+        same_as_scratch(dev, "durable_tc_pbme after restore", restored, store)
+        emit("durable_tc_pbme", fs=fs, batch_rows=k, facts=facts, baseline=baseline,
+             checkpoint=ckpt, wal_bytes=wal_bytes, tail_modes=[st.modes for st in tail],
+             restore=restore, insert_after_restore={"modes": after.modes,
+                                                    "iterations": after.iterations,
+                                                    "seconds": after_s},
+             exact=True)
+        del live, restored, store, srv
+        torch.cuda.empty_cache()
+
+        # -- durable_g10k: 10^8 facts to disk and back, reads during a checkpoint
+        edges = gnp_graph(G10K, p=0.001, seed=1)
+        live = MaterializedInstance(tc, {"arc": edges}, device=dev)
+        cfg = durable("g10k")
+        srv, baseline = write_timing(lambda: DatalogServer(live, durability=cfg))
+        baseline = sized(baseline, list_snapshots(cfg.root)[-1])
+        srv.close()
+        packs = {"n": 0}
+        real_packed = MaterializedInstance._packed
+
+        def counted_packed(self, handle, domain):
+            packs["n"] += 1
+            return real_packed(self, handle, domain)
+
+        MaterializedInstance._packed = counted_packed
+        try:
+            restored, restore = restore_timing("g10k")
+        finally:
+            MaterializedInstance._packed = real_packed
+        check(packs["n"] == 0, f"durable_g10k: the restore re-packed {packs['n']} matrices")
+        same_epochs(dev, "durable_g10k", live, restored)
+        del live
+        store, _ = scratch_fixpoint(dev, tc, {"arc": edges}, {"backend": "auto"})
+        facts = same_as_scratch(dev, "durable_g10k", restored, store)
+        del store
+        torch.cuda.empty_cache()
+        # a 1 % insert of new edges (epoch 1), then point reads: idle, and
+        # while checkpoint_now writes epoch 1 on another thread
+        srv = DatalogServer(restored, durability=cfg, max_batch=READ_BATCH)
+        have = set(map(tuple, edges.tolist()))
+        rng = np.random.default_rng(1)
+        new = []
+        while len(new) < max(len(edges) // 100, 1):
+            a, b = (int(v) for v in rng.integers(0, G10K, size=2))
+            if a != b and (a, b) not in have:
+                have.add((a, b))
+                new.append((a, b))
+        new = np.array(new, np.int32)
+        txn(srv, [("insert", "arc", new)])
+        srcs = [int(v) for v in np.random.default_rng(0).integers(0, G10K, size=READ_QUERIES)]
+        answers = {}                                       # rid → (src, rows)
+
+        def reads(count):
+            rids = []
+            for i in range(0, count, READ_BATCH):
+                asked = {srv.submit_query("tc", src=v): v
+                         for v in (srcs[(i + j) % READ_QUERIES] for j in range(READ_BATCH))}
+                while any(r not in srv.done for r in asked):
+                    srv.step()
+                rids += asked
+                answers.update((r, (v, srv.done[r])) for r, v in asked.items())
+            return rids
+
+        def latency(rids):
+            lat = {r.rid: (r.queued_seconds + r.service_seconds * r.batch_size) * 1e3
+                   for r in srv.stats.snapshot() if r.rid in set(rids)}
+            vals = list(lat.values())
+            return {"reads": len(vals), "p50_ms": statistics.median(vals),
+                    "p99_ms": percentile(vals, 99)}
+
+        reads(READ_BATCH)                                 # warm the read path, untimed
+        idle = latency(reads(READ_IDLE))
+        out = []
+        writer = threading.Thread(target=lambda: out.append(srv.checkpoint_now()))
+        writer.start()
+        rids, overlapped = [], 0
+        for _ in range(0, READ_IDLE, READ_BATCH):
+            alive = writer.is_alive()
+            batch = reads(READ_BATCH)
+            rids += batch
+            overlapped += READ_BATCH if alive and writer.is_alive() else 0
+        writer.join()
+        during = latency(rids)
+        ckpt_s = srv.durability.stats()["last_checkpoint_seconds"]
+        check(out and out[0] is not None and srv.durability.last_snapshot_epoch == 1,
+              f"durable_g10k: the checkpoint during the reads wrote {out}")
+        check(overlapped > 0, "durable_g10k: no read overlapped the checkpoint")
+        store, _ = scratch_fixpoint(dev, tc, {"arc": np.concatenate([edges, new])},
+                                    {"backend": "auto"})
+        tc_rows = store["tc"].rows[: store["tc"].count]
+        want = {v: tc_rows[tc_rows[:, 0] == v].cpu().numpy() for v in set(srcs)}
+        for v, got in answers.values():
+            check(np.array_equal(got, want[v]), f"durable_g10k: tc(src={v}) is not exact")
+        del store, tc_rows
+        ckpt_bytes = dir_bytes(out[0])
+        srv.close()
+        emit("durable_g10k", fs=fs, facts=facts, baseline=baseline, restore=restore,
+             repacked=packs["n"], reads={"max_batch": READ_BATCH,
+                                         "latency": "submit to reply, ms", "idle": idle,
+                                         "during_checkpoint": during,
+                                         "overlapped": overlapped},
+             checkpoint_during_reads={"seconds": ckpt_s, "bytes": ckpt_bytes,
+                                      "gb_per_s": ckpt_bytes / ckpt_s / 1e9},
+             exact=True)
+        del restored, srv, answers
+        torch.cuda.empty_cache()
+
+        engine_resume_phase(dev, os.path.join(work, "csda"))
+        scenario_crash_phase(dev, os.path.join(work, "crash"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def engine_resume_phase(dev, root) -> None:
+    """CSDA 3000 on the tuple path (157 iterations): checkpoints every 16
+    iterations, then a fresh engine resumed from the newest one."""
+    from repro_torch.configs.datalog_workloads import ALL
+    from repro_torch.core import Engine, EngineConfig
+    from repro_torch.data.program_facts import csda_facts
+    from repro_torch.persist import latest_valid_snapshot, list_snapshots
+
+    prog, edb = ALL["csda"].program, csda_facts(3000)
+    written = {"seconds": 0.0, "bytes": 0}
+    real_save = Engine._save_fixpoint
+
+    def timed_save(self, path, *args):
+        t0 = time.perf_counter()
+        real_save(self, path, *args)
+        written["seconds"] += time.perf_counter() - t0
+        written["bytes"] += dir_bytes(list_snapshots(path)[-1])
+
+    runs = {}
+    for label, cfg, kw in (
+        ("plain", EngineConfig(backend="tuple"), {}),
+        ("checkpointed", EngineConfig(backend="tuple", checkpoint_every=16,
+                                      checkpoint_dir=root), {}),
+        ("resumed", EngineConfig(backend="tuple"), {"resume_from": root}),
+    ):
+        eng = Engine(cfg, device=dev)
+        Engine._save_fixpoint = timed_save
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with durable_path() if label != "plain" else contextlib.nullcontext():
+                out = eng.run(prog, edb, **kw)
+            torch.cuda.synchronize()
+        finally:
+            Engine._save_fixpoint = real_save
+        runs[label] = (eng, out, time.perf_counter() - t0)
+        if label == "checkpointed":
+            snap = latest_valid_snapshot(root, device="cpu")
+            at = (int(snap.extra_meta["stratum"]), int(snap.extra_meta["iteration"]))
+            resume_bytes = dir_bytes(snap.path)
+            on_disk = len(list_snapshots(root))
+    plain = runs["plain"][0].stats
+    for label in ("checkpointed", "resumed"):
+        eng, out, _s = runs[label]
+        for rel, rows in runs["plain"][1].items():
+            check(np.array_equal(out[rel], rows), f"engine_resume: {label} {rel} differs")
+        later = {s: n for s, n in plain.iterations.items() if s >= at[0]}
+        got = {s: n for s, n in eng.stats.iterations.items() if s >= at[0]}
+        check(got == later, f"engine_resume: {label} iterations {got}, plain {later}")
+
+    def key(records):
+        return [(r.stratum, r.iteration, r.idb, r.candidates, r.deduped, r.delta, r.full,
+                 r.dsd_strategy) for r in records if (r.stratum, r.iteration) >= at]
+
+    check(key(runs["resumed"][0].stats.records) == key(plain.records),
+          "engine_resume: the iterations after the resume point differ")
+    emit("engine_resume", workload="csda", iterations=plain.iterations, checkpoint_every=16,
+         checkpoints=runs["checkpointed"][0]._ckpt_seq, on_disk=on_disk,
+         resumed_at={"stratum": at[0], "iteration": at[1]},
+         facts={k: len(v) for k, v in runs["plain"][1].items()},
+         seconds=runs["plain"][2], seconds_with_checkpoints=runs["checkpointed"][2],
+         checkpoint_writes={**written, "gb_per_s": written["bytes"] / written["seconds"] / 1e9},
+         resume_seconds=runs["resumed"][2], resumed_snapshot_bytes=resume_bytes, exact=True)
+
+
+def scenario_crash_phase(dev, root) -> None:
+    """``tests/test_scenarios.py``'s crash while shedding, on the card: a
+    torn WAL bracket after the acknowledged prefix, then a restore; and the
+    burst scenario through ``repro_torch.loadgen.run_scenario``."""
+    from repro_torch.core import EngineConfig
+    from repro_torch.loadgen import (
+        Scenario, TcWorkload, VirtualClock, bursty_times, mixed_arrivals, run_scenario,
+    )
+    from repro_torch.persist import DurabilityConfig
+    from repro_torch.serve_datalog import (
+        DatalogServer, MaterializedInstance, OverloadError, ServerLimits, UpdateStats,
+    )
+
+    tc = "tc(x,y) :- arc(x,y).\ntc(x,y) :- tc(x,z), arc(z,y)."
+    tuple_cfg = EngineConfig(backend="tuple")
+    rng = np.random.default_rng(0)
+    edges = np.unique(rng.integers(0, 14, size=(30, 2)), axis=0).astype(np.int32)
+    inst = MaterializedInstance(tc, {"arc": edges}, tuple_cfg, device=dev)
+    clk = VirtualClock()
+    srv = DatalogServer(inst, durability=DurabilityConfig(root, checkpoint_every_epochs=0,
+                                                          checkpoint_wal_bytes=0),
+                        limits=ServerLimits(max_queue_depth=2), clock=clk)
+    applied, shed = [], 0
+    with durable_path():
+        for i in range(6):
+            try:
+                applied.append((srv.submit_txn([("insert", "arc",
+                                                 np.array([[i, i + 20]], np.int32))]), i))
+            except OverloadError:
+                shed += 1
+            if i % 3 == 2:
+                srv.run()
+        done = srv.run()
+    acked = [i for rid, i in applied if isinstance(done.get(rid), UpdateStats)]
+    check(acked and shed > 0, f"scenario_crash: acked {acked}, shed {shed}")
+    wal = srv.durability.wal
+    wal.begin_txn(inst.epoch + 1)               # the crash: a bracket with no COMMIT
+    wal.append("arc", "insert", np.array([[40, 41]], np.int32), inst.epoch + 1)
+    pre_crash = {rel: inst.relation(rel) for rel in ("arc", "tc")}
+    wal_bytes = wal.size_bytes()
+    srv.close()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with durable_path():
+        restored = MaterializedInstance.restore(root, config=tuple_cfg, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    snap_bytes = dir_bytes(restored.restore_stats["snapshot_path"])
+    for rel, want in pre_crash.items():
+        check(np.array_equal(restored.relation(rel), want),
+              f"scenario_crash: {rel} is not the acknowledged prefix")
+    check((40, 41) not in set(map(tuple, restored.relation("arc").tolist())),
+          "scenario_crash: the torn bracket replayed")
+    times = bursty_times(0.5, 300.0, period=0.4, duty=0.25, duration=0.8, seed=21)
+    res = run_scenario(Scenario(
+        "burst", mixed_arrivals(rate=0, duration=0, times=times, seed=21, n_keys=12),
+        limits=ServerLimits(max_queue_depth=8, overload_policy="reject", degrade_at=0.75),
+        workload=TcWorkload(n_nodes=12, p=0.1, seed=3, config=tuple_cfg),
+        service_cost=0.01), device=dev)
+    check(res.exact and res.shed_total > 0 and res.completed == res.accepted,
+          f"scenario_crash: the burst scenario gave {res.to_row()}")
+    emit("scenario_crash", acked=acked, shed=shed, restore_stats={
+        k: v for k, v in restored.restore_stats.items() if k != "snapshot_path"},
+         restore_seconds=restore_s, snapshot_bytes=snap_bytes, wal_bytes=wal_bytes,
+         restore_gb_per_s=(snap_bytes + wal_bytes) / restore_s / 1e9,
+         torn_bracket_dropped=True, burst=res.to_row(), exact=True)
 
 
 def main() -> int:
@@ -1039,6 +1545,15 @@ def main() -> int:
     gather_shapes = gather_sum_phase(dev, model, bulk)
     launches["gather_sum"] = recsys_phases(dev, FULL, model, bulk_stream, bulk)
     err["gather_sum"] = max(v["max_abs_err"] for v in gather_shapes.values())
+    del model, bulk_stream, bulk
+    torch.cuda.empty_cache()
+
+    # -- 6c. durability: snapshots, the WAL, restore, engine checkpoints -------------
+    # last, so that its files and host buffers cannot slow phases 7-9; counted
+    # apart too: the durability path's own launches, restored matrices included
+    durability_phases(dev)
+    check(DURABLE_LAUNCHES["bitmm"] > 0 and DURABLE_LAUNCHES["bitmm_fused_delta"] > 0,
+          f"the durability path launched {DURABLE_LAUNCHES}")
 
     # -- report --------------------------------------------------------------
     sources = {   # name → (CUDA source, the TPU kernel it replaces)
@@ -1059,6 +1574,7 @@ def main() -> int:
             "replaces": sources[name][1],
             "launches": launches[name],
             "serve_launches": serve_launches[name],
+            "durable_launches": DURABLE_LAUNCHES[name],
             "max_abs_err": err[name],
             "ms": timed[name]["ms"],
             "plain_ms": timed[name]["plain_ms"],

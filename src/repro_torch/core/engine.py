@@ -62,13 +62,6 @@ from repro_torch.core.setdiff import DSDState, set_difference
 from repro_torch.obs.trace import TRACER as _TRACE
 from repro_torch.relational.sort import SENTINEL
 
-#: Where the work that lifts the not-yet-ported engine options is queued.
-_DURABILITY_ITEM = (
-    "engine checkpoints need the port's persist codec, queued as ROADMAP.md "
-    "item A8 (durability and engine checkpoints)"
-)
-
-
 # --------------------------------------------------------------------------
 # configuration & statistics
 # --------------------------------------------------------------------------
@@ -86,7 +79,7 @@ class EngineConfig:
     alpha: float = 4.0               # DSD cost-model α (see setdiff.calibrate_alpha)
     max_iters: int = 1_000_000
     capacity_min: int = 128
-    checkpoint_every: int = 0        # fixpoint checkpoint cadence (0 = off); not ported yet
+    checkpoint_every: int = 0        # fixpoint checkpoint cadence (0 = off)
     checkpoint_dir: str | None = None
     eost_spill_dir: str | None = None  # EOST-off ablation writes here
 
@@ -165,8 +158,6 @@ class Engine:
                 "repro_torch.Engine runs on CUDA by default and no CUDA device is "
                 'available; pass device="cpu" to run on the CPU'
             )
-        if self.config.checkpoint_every and self.config.checkpoint_dir:
-            raise NotImplementedError(_DURABILITY_ITEM)
         self.stats = EvalStats()
 
     # -- public API --------------------------------------------------------
@@ -183,9 +174,11 @@ class Engine:
 
         Returns every IDB relation as numpy rows; ``return_numpy=False``
         keeps the fixpoint on the device (see :meth:`take_store`).
+        ``resume_from`` names a directory of checkpoints written with
+        ``EngineConfig.checkpoint_every``/``checkpoint_dir`` (by either
+        package): the newest valid one is loaded onto the engine's device
+        and evaluation continues from its stratum and iteration.
         """
-        if resume_from is not None:
-            raise NotImplementedError(_DURABILITY_ITEM)
         if isinstance(program, str):
             from repro_torch.core.parser import parse
 
@@ -207,11 +200,20 @@ class Engine:
                 raise KeyError(f"missing EDB relation {name!r}")
             store[name] = TupleRelation.from_numpy(name, edb[name], domain, self.device)
 
+        start_stratum, start_iter = 0, 0
+        if resume_from is not None:
+            start_stratum, start_iter, store = self._load_fixpoint(
+                resume_from, strat, store
+            )
+
         with _TRACE.span(
             "engine.run", "engine", strata=len(strat.strata), domain=domain
         ):
             for stratum in strat.strata:
-                self._eval_stratum(strat, stratum, store)
+                if stratum.index < start_stratum:
+                    continue
+                it0 = start_iter if stratum.index == start_stratum else 0
+                self._eval_stratum(strat, stratum, store, start_iteration=it0)
 
         self.stats.total_seconds = time.perf_counter() - t_start
         self.strat = strat
@@ -259,7 +261,11 @@ class Engine:
         return rows
 
     def _eval_stratum(
-        self, strat: Stratification, stratum: Stratum, store: dict[str, Any]
+        self,
+        strat: Stratification,
+        stratum: Stratum,
+        store: dict[str, Any],
+        start_iteration: int = 0,
     ) -> None:
         cfg = self.config
         t0 = time.perf_counter()
@@ -286,18 +292,26 @@ class Engine:
             return
 
         groups = delta_variants(stratum)
-        handles = self._init_handles(strat, stratum, store)
+        handles = self._init_handles(strat, stratum, store, fresh=start_iteration == 0)
         for p in stratum.preds:
             self.stats.backend_used[p] = handles[p]
         dsd_state = {p: DSDState(alpha=cfg.alpha) for p in stratum.preds}
         deltas: dict[str, TupleView | None] = {p: None for p in stratum.preds}
+        if start_iteration > 0 and getattr(self, "_resume_deltas", None):
+            # mid-stratum resume: the checkpoint's live Δ views drive the
+            # next iteration's delta variants exactly as before the checkpoint
+            deltas.update(
+                {p: v for p, v in self._resume_deltas.items() if p in deltas}
+            )
+            self._resume_deltas = None
         with _TRACE.span(
             "stratum.eval", "engine",
             stratum=stratum.index, backend="tuple",
             recursive=stratum.recursive,
         ) as sp:
             self._seminaive_loop(
-                strat, stratum, store, handles, deltas, dsd_state, groups
+                strat, stratum, store, handles, deltas, dsd_state, groups,
+                start_iteration=start_iteration,
             )
             rows = self._note_stratum_actuals(stratum, store, t0)
             sp.set(
@@ -372,6 +386,14 @@ class Engine:
 
             if not cfg.enable_eost:
                 self._simulate_commit(stratum, store)
+            if (
+                cfg.checkpoint_every
+                and cfg.checkpoint_dir
+                and iteration % cfg.checkpoint_every == 0
+            ):
+                self._save_fixpoint(
+                    cfg.checkpoint_dir, stratum.index, iteration, store, deltas
+                )
 
             if not stratum.recursive:
                 break                                    # Alg. 1 line 15
@@ -872,3 +894,89 @@ class Engine:
                 os.path.join(self.config.eost_spill_dir, f"commit_{stratum.index}.npz"),
                 **blobs,
             )
+
+    def _save_fixpoint(
+        self,
+        path: str,
+        stratum_index: int,
+        iteration: int,
+        store: dict[str, Any],
+        deltas: dict[str, "TupleView | None"] | None = None,
+    ) -> None:
+        """Mid-fixpoint checkpoint in the ``repro_torch.persist`` snapshot
+        format (the reference's, byte for byte).
+
+        The semi-naïve loop's live Δ views ride along as extra arrays —
+        without them a resumed tuple stratum would see empty deltas and
+        declare a premature fixpoint.  (Dense handles carry their own delta
+        state and need nothing extra.)  Checkpoints are numbered by a
+        per-engine sequence; ``resume_from`` loads the newest valid one, so
+        a checkpoint torn by a crash falls back to its predecessor.
+        """
+        from repro_torch.persist.codec import (
+            list_snapshots,
+            prune_snapshots,
+            snapshot_dir_epoch,
+            write_snapshot,
+        )
+
+        if not hasattr(self, "_ckpt_seq"):
+            # continue past any checkpoints already in the directory: a rerun
+            # into a reused checkpoint_dir must number its snapshots AFTER
+            # the stale run's, or newest-wins resume would load the old run's
+            # state (and write_snapshot would no-op on an existing epoch)
+            existing = list_snapshots(path)
+            self._ckpt_seq = (
+                snapshot_dir_epoch(existing[-1]) if existing else 0
+            )
+        self._ckpt_seq += 1
+        extra_meta: dict[str, Any] = {
+            "engine_checkpoint": True,
+            "stratum": stratum_index,
+            "iteration": iteration,
+            "delta_counts": {},
+        }
+        extra_arrays: dict[str, torch.Tensor] = {}
+        for pred, view in (deltas or {}).items():
+            if view is None or getattr(view, "count", 0) == 0:
+                continue
+            extra_meta["delta_counts"][pred] = int(view.count)
+            extra_arrays[f"delta.{pred}"] = view.rows
+        if self.device.type == "cuda":
+            # the iteration's kernels are done before anything is copied
+            torch.cuda.synchronize(self.device)
+        write_snapshot(
+            path,
+            handles=store,
+            domain=self.domain,
+            epoch=self._ckpt_seq,
+            extra_meta=extra_meta,
+            extra_arrays=extra_arrays,
+        )
+        prune_snapshots(path, keep=2)
+
+    def _load_fixpoint(self, path: str, strat: Stratification, store: dict[str, Any]):
+        """Load the newest valid checkpoint written by :meth:`_save_fixpoint`
+        (or by the reference's) onto the engine's device.
+
+        Restores every relation handle, re-seeds the saved Δ views (consumed
+        by ``_eval_stratum`` when it resumes mid-stratum), and returns
+        ``(stratum_index, iteration, store)``.
+        """
+        from repro_torch.persist.codec import SnapshotError, latest_valid_snapshot
+
+        snap = latest_valid_snapshot(path, device=self.device)
+        if snap is None:
+            raise SnapshotError(f"no valid fixpoint checkpoint under {path!r}")
+        self.domain = snap.domain
+        store.update(snap.handles)
+        self._resume_deltas = {}
+        for pred, count in snap.extra_meta.get("delta_counts", {}).items():
+            rows = snap.extra_arrays.get(f"delta.{pred}")
+            if rows is not None:
+                self._resume_deltas[pred] = TupleView(rows, int(count), self.domain)
+        return (
+            int(snap.extra_meta.get("stratum", 0)),
+            int(snap.extra_meta.get("iteration", 0)),
+            store,
+        )

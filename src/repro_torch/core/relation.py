@@ -26,6 +26,12 @@ from repro_torch.relational.sort import SENTINEL, argsort_rows, compact_key, uni
 
 INT_INF = SENTINEL
 
+#: Bytes a device → host copy moves per step.  One pageable copy of a 1 GB
+#: table holds the CUDA driver for half a second on an H100 host, and every
+#: other thread's copies (a server's reads) wait behind it; in steps through
+#: a pinned buffer each wait is a few milliseconds.
+HOST_COPY_CHUNK_BYTES = 64 << 20
+
 
 def next_bucket(n: int, minimum: int = 128) -> int:
     return max(minimum, 1 << int(np.ceil(np.log2(max(n, 1)))))
@@ -35,6 +41,27 @@ def empty_delta(arity: int, device: torch.device | str, minimum: int = 128) -> t
     """The normalized empty Δ/∇ view: a minimum-bucket SENTINEL table."""
     return torch.full((next_bucket(0, minimum), arity), SENTINEL, dtype=torch.int32,
                       device=device)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """``t``'s contents as a host numpy array.  A CUDA tensor larger than
+    :data:`HOST_COPY_CHUNK_BYTES` is copied in steps of that size through a
+    pinned buffer, each on the caller's current stream, which is then
+    synchronised; the caller orders that stream after ``t``'s writer."""
+    if t.device.type != "cuda" or t.numel() * t.element_size() <= HOST_COPY_CHUNK_BYTES:
+        return t.cpu().numpy()
+    src = t.reshape(-1)
+    out = torch.empty(t.shape, dtype=t.dtype)
+    dst = out.view(-1)
+    step = HOST_COPY_CHUNK_BYTES // t.element_size()
+    stage = torch.empty(step, dtype=t.dtype, pin_memory=True)
+    stream = torch.cuda.current_stream(t.device)
+    for a in range(0, src.numel(), step):
+        n = min(step, src.numel() - a)
+        stage[:n].copy_(src[a : a + n], non_blocking=True)
+        stream.synchronize()
+        dst[a : a + n].copy_(stage[:n])
+    return out.numpy()
 
 
 def _sort_pad(rows: torch.Tensor, capacity: int, domain: int) -> torch.Tensor:
@@ -229,7 +256,7 @@ class TupleRelation:
             "count": self.count,
             "domain": self.domain,
         }
-        return meta, {"rows": self.rows.cpu().numpy()}
+        return meta, {"rows": to_host(self.rows)}
 
     @classmethod
     def from_blocks(cls, name: str, meta: dict, arrays: dict, device) -> "TupleRelation":
@@ -384,7 +411,7 @@ class DenseAggRelation:
     def to_blocks(self) -> tuple[dict, dict[str, np.ndarray]]:
         """(meta, arrays): the value table and the bit-packed live Δ."""
         meta = {"kind": "dense_agg", "n": self.n, "op": self.op}
-        return meta, {"values": self.values.cpu().numpy(), "delta": _bits_to_numpy(self.delta)}
+        return meta, {"values": to_host(self.values), "delta": _bits_to_numpy(self.delta)}
 
     @classmethod
     def from_blocks(cls, name: str, meta: dict, arrays: dict, device) -> "DenseAggRelation":
@@ -395,3 +422,27 @@ class DenseAggRelation:
         h.count = int((values != h.absent).sum())
         h.delta_count = int(delta.sum())
         return h
+
+
+#: ``meta["kind"]`` → handle class: the snapshot codec and ``interop`` share it.
+_KINDS = {
+    "tuple": TupleRelation,
+    "dense_set": DenseSetRelation,
+    "dense_agg": DenseAggRelation,
+}
+
+
+def relation_to_blocks(handle) -> tuple[dict, dict[str, np.ndarray]]:
+    """Serialize any relation handle to (meta, host arrays): codec entry point."""
+    fn = getattr(handle, "to_blocks", None)
+    if fn is None:
+        raise TypeError(f"{type(handle).__name__} is not serializable")
+    return fn()
+
+
+def relation_from_blocks(name: str, meta: dict, arrays: dict, device):
+    """Rebuild a relation handle on ``device`` from codec (meta, arrays)."""
+    kind = meta.get("kind")
+    if kind not in _KINDS:
+        raise ValueError(f"unknown relation kind {kind!r} for {name!r}")
+    return _KINDS[kind].from_blocks(name, meta, arrays, device)

@@ -18,27 +18,18 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.relation import DenseAggRelation, DenseSetRelation, TupleRelation
+from repro_torch.core.relation import relation_from_blocks
 from repro_torch.models.recsys import RecsysConfig, TwoTower
-
-_KINDS = {
-    "tuple": TupleRelation,
-    "dense_set": DenseSetRelation,
-    "dense_agg": DenseAggRelation,
-}
 
 
 def store_from_reference(
     blocks: dict[str, tuple[dict, dict[str, np.ndarray]]], device
 ) -> dict[str, Any]:
     """``{name: (meta, arrays)}`` → ``{name: handle}`` on ``device``."""
-    store = {}
-    for name, (meta, arrays) in blocks.items():
-        kind = meta.get("kind")
-        if kind not in _KINDS:
-            raise ValueError(f"unknown relation kind {kind!r} for {name!r}")
-        store[name] = _KINDS[kind].from_blocks(name, meta, arrays, device)
-    return store
+    return {
+        name: relation_from_blocks(name, meta, arrays, device)
+        for name, (meta, arrays) in blocks.items()
+    }
 
 
 def store_to_blocks(store: dict[str, Any]) -> dict[str, tuple[dict, dict[str, np.ndarray]]]:

@@ -22,6 +22,13 @@ A port of ``repro.serve_datalog`` (see its docstring for the architecture):
    compatible transactions on a single writer thread, snapshot reads,
    deadlines, overload policy, retries, metrics and profiles.
 
+5. Durability (``repro_torch.persist``, the reference's on-disk formats):
+   ``DatalogServer(durability=...)`` logs every transaction to a delta WAL
+   before its epoch publishes and checkpoints off a reader pin on a
+   background thread; ``MaterializedInstance.restore(path)`` loads the
+   newest valid snapshot onto the device (packed PBME matrices included)
+   and replays the WAL tail, bit for bit the pre-crash fixpoint.
+
 Everything runs on CUDA unless given ``device="cpu"``::
 
     from repro_torch.serve_datalog import MaterializedInstance, DatalogServer
@@ -30,14 +37,14 @@ Everything runs on CUDA unless given ``device="cpu"``::
     inst.query("tc", src=3)
 
 Not ported yet (``NotImplementedError`` naming the ROADMAP.md item):
-durability — snapshots, the WAL, restore, the checkpointer (A8); admission
-analysis, lint and demand specialization (A9).  The port admits programs by
+admission analysis, lint and demand specialization (A9).  The port admits programs by
 validation alone, the reference's ``analysis=None``.
 """
 
 from repro_torch.core.versioned_store import Snapshot, VersionedStore
 from repro_torch.obs.explain import PlanEstimate
 from repro_torch.obs.profile import FixpointProfile
+from repro_torch.persist.manager import DurabilityConfig, DurabilityManager
 from repro_torch.serve_datalog.instance import (
     MaterializedInstance,
     OpStats,
@@ -72,6 +79,8 @@ __all__ = [
     "ServerStats",
     "Snapshot",
     "VersionedStore",
+    "DurabilityConfig",
+    "DurabilityManager",
     "PlanEstimate",
     "FixpointProfile",
 ]

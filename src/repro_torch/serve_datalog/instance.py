@@ -53,10 +53,16 @@ store until the epoch is reclaimed, and a read copies its result to the
 host before its pin drops, so no freed block is still in use by a kernel
 of another stream.
 
+**Durability.**  :meth:`MaterializedInstance.restore` warm-starts from a
+durability root (``repro_torch.persist``, the reference's on-disk format):
+the newest valid snapshot is copied onto the device on the writer's stream,
+packed PBME matrices included, and the WAL tail replays through
+:meth:`apply_txn`.
+
 **Not ported yet**, raising ``NotImplementedError`` that names the queue
-item: durability (``restore``, WAL replay; ROADMAP.md item A8), demand
-specialization (``specialize``, ``seed_demand``, ``demand_query``) and
-admission analysis (any ``analysis`` but ``None``; item A9).
+item: demand specialization (``specialize``, ``seed_demand``,
+``demand_query``) and admission analysis (any ``analysis`` but ``None``;
+ROADMAP.md item A9).
 
 Concurrency contract: any number of reader threads, one writer at a time
 (enforced by an internal lock; ``DatalogServer`` runs a single writer
@@ -66,6 +72,7 @@ thread).
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 import warnings
@@ -107,11 +114,9 @@ from repro_torch.serve_datalog.plan_cache import (
     default_cache,
 )
 
-#: Where durability (snapshots, WAL replay, restore) is queued.
-DURABILITY_ITEM = (
-    "durability (snapshots, the WAL and restore) is not ported yet: "
-    "ROADMAP.md item A8"
-)
+#: errors a WAL replay never skips: CUDA out of memory and the kernels'
+#: launch and runtime errors are ``RuntimeError``s (see ``_replay_wal``)
+_DEVICE_FAULTS = (RuntimeError, MemoryError)
 
 
 @dataclass(frozen=True)
@@ -343,18 +348,193 @@ class MaterializedInstance:
         """
         return self.vstore.pin()
 
-    # -- durability: not ported yet --------------------------------------------
+    # -- crash-safe warm-start -----------------------------------------------
 
     @classmethod
-    def restore(cls, path: str, *args, **kwargs) -> "MaterializedInstance":
-        """Warm-start from a durability root: needs the port's persist codec."""
-        raise NotImplementedError(DURABILITY_ITEM)
+    def restore(
+        cls,
+        path: str,
+        program: "Program | str | None" = None,
+        config: EngineConfig | None = None,
+        cache: PlanCache | None = None,
+        replay: bool = True,
+        analysis=None,
+        device=None,
+    ) -> "MaterializedInstance":
+        """Warm-start from a durability root: snapshot load + WAL replay.
 
-    def _restore_bitmatrix_state(self, snap, handles: dict, domain: int):
-        raise NotImplementedError(DURABILITY_ITEM)
+        Loads the newest *valid* snapshot under ``path`` (torn tmp
+        directories and checksum-failed snapshots are skipped — recovery
+        always lands on a consistent epoch) onto ``device`` (CUDA unless
+        given ``"cpu"``), installs its relation handles and packed PBME
+        matrices as the store's base epoch — no re-fixpoint — and replays
+        the WAL tail (records above the snapshot epoch) through
+        :meth:`apply_txn`.  The result is bit-for-bit the pre-crash
+        fixpoint, at a cost proportional to the WAL tail.  The root may
+        have been written by either package.
+
+        ``program`` may be omitted: the manifest embeds the program source
+        (``repr(Program)`` parses back).  When given, its fingerprint must
+        match the snapshot's.  ``restore_stats`` on the returned instance
+        records what recovery did.
+        """
+        from repro_torch.persist.codec import (
+            SnapshotError,
+            latest_valid_snapshot,
+            strat_hash,
+        )
+        from repro_torch.persist.manager import WAL_NAME
+        from repro_torch.persist.wal import DeltaWAL
+
+        if analysis is not None:
+            raise NotImplementedError(ANALYSIS_ITEM)
+        self = cls.__new__(cls)
+        self.engine = Engine(config, device=device)
+        self.device = self.engine.device
+        self._stream = (
+            torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        )
+        with self._on_writer_stream():
+            # the blocks are copied onto the card on the writer's stream; the
+            # base epoch's ready event is recorded after them
+            snap = latest_valid_snapshot(path, device=self.device)
+            if snap is None:
+                raise SnapshotError(f"no valid snapshot under {path!r}")
+            source = program if program is not None else snap.program_source
+            if not source:
+                raise SnapshotError(
+                    f"{snap.path}: manifest has no program source; pass program="
+                )
+            self.cache = cache or default_cache()
+            self.plan = self.cache.get(source)
+            if snap.fingerprint and self.plan.fingerprint != snap.fingerprint:
+                raise SnapshotError(
+                    f"{snap.path}: snapshot fingerprint {snap.fingerprint} does "
+                    f"not match program fingerprint {self.plan.fingerprint}"
+                )
+            self.strat = self.plan.strat
+            if snap.strat_hash and strat_hash(self.strat) != snap.strat_hash:
+                # stratum indices key the PBME residency sidecar — replaying
+                # into a differently-stratified plan would attach matrices to
+                # the wrong strata
+                raise SnapshotError(
+                    f"{snap.path}: snapshot stratification {snap.strat_hash} "
+                    "does not match this program's stratification"
+                )
+            self.engine.domain = snap.domain
+            self.engine.strat = self.strat
+            handles = dict(snap.handles)
+            self._install_state(
+                handles, snap.domain, snap.epoch,
+                self._restore_bitmatrix_state(snap, handles, snap.domain),
+            )
+        self.restore_stats = {
+            "snapshot_path": snap.path,
+            "snapshot_epoch": snap.epoch,
+            "replayed_records": 0,
+            "replayed_batches": 0,
+            "skipped_records": 0,
+        }
+        if replay:
+            wal_path = os.path.join(path, WAL_NAME)
+            if os.path.exists(wal_path):
+                wal = DeltaWAL(wal_path, fsync="off")
+                try:
+                    self._replay_wal(wal, snap.epoch)
+                finally:
+                    wal.close()
+        return self
+
+    def _restore_bitmatrix_state(
+        self, snap, handles: dict, domain: int
+    ) -> dict[int, dict]:
+        """PBME residency from the snapshot's packed matrices (already
+        ``int32`` words on the device).
+
+        A stratum that is PBME-eligible but missing from the snapshot (e.g.
+        an engine-side checkpoint, which has no residency sidecar) is
+        re-packed from the loaded relations — same result, just not free.
+        """
+        bm: dict[int, dict] = {}
+        for stratum in self.strat.strata:
+            plan = self._bm_eligible(stratum, domain)
+            if plan is None or plan.edb not in handles:
+                continue
+            mats = snap.bitmatrix.get(stratum.index)
+            if mats is not None and {"arc", "m"} <= set(mats):
+                arc, m = mats["arc"], mats["m"]
+            else:
+                arc = self._packed(handles[plan.edb], domain)
+                m = self._packed(handles[plan.idb], domain)
+            bm[stratum.index] = {"plan": plan, "arc": arc, "m": m}
+        return bm
 
     def _replay_wal(self, wal, after_epoch: int) -> None:
-        raise NotImplementedError(DURABILITY_ITEM)
+        """Redo the WAL tail through the incremental update drivers.
+
+        Txn-framed groups (begin/op*/commit) re-apply as ONE
+        :meth:`apply_txn` batch each — whole transactions or nothing, the
+        pre-crash commit granularity; a framed transaction that raises on
+        replay is skipped entirely (replaying it op-by-op would break the
+        atomicity its submitter was promised).  Legacy bare records:
+        consecutive records sharing (epoch, op, relation) were one coalesced
+        server batch and re-apply as one single-op transaction, with the
+        historical per-record fallback on failure (a record whose batch
+        failed pre-crash never published, so skipping it on replay
+        converges to the same state).
+
+        Unlike the reference, a device failure is never skipped: CUDA out of
+        memory and a kernel's launch or runtime error (``RuntimeError``s) say
+        nothing about the transaction, and skipping one would drop a
+        committed transaction in silence.  They propagate out of
+        :meth:`restore`, which can be retried.
+        """
+        stats = self.restore_stats
+        pending: list = []
+
+        def flush() -> None:
+            if not pending:
+                return
+            op, rel = pending[0].op, pending[0].rel
+            rows = np.concatenate([r.rows for r in pending])
+            try:
+                self.apply_txn([(op, rel, rows)])
+                stats["replayed_records"] += len(pending)
+            except _DEVICE_FAULTS:
+                raise
+            except Exception:
+                for rec in pending:
+                    try:
+                        self.apply_txn([(rec.op, rec.rel, rec.rows)])
+                        stats["replayed_records"] += 1
+                    except _DEVICE_FAULTS:
+                        raise
+                    except Exception:
+                        stats["skipped_records"] += 1
+            stats["replayed_batches"] += 1
+            pending.clear()
+
+        for txn in wal.replay_txns(after_epoch=after_epoch):
+            if txn.token is None:       # legacy bare record: coalesce runs
+                rec = txn.ops[0]
+                if pending and (
+                    rec.epoch != pending[0].epoch
+                    or rec.op != pending[0].op
+                    or rec.rel != pending[0].rel
+                ):
+                    flush()
+                pending.append(rec)
+                continue
+            flush()
+            try:
+                self.apply_txn([(r.op, r.rel, r.rows) for r in txn.ops])
+                stats["replayed_records"] += len(txn.ops)
+            except _DEVICE_FAULTS:
+                raise
+            except Exception:
+                stats["skipped_records"] += len(txn.ops)
+            stats["replayed_batches"] += 1
+        flush()
 
     def _hot_buckets(self, handles: dict) -> tuple[int, ...]:
         """Warm the *actual* materialized capacities, not just defaults."""

@@ -7,9 +7,10 @@ serve → per-request stats), with these request kinds:
   srv.transaction(); tx.insert("edge", rows); tx.retract("owner", rows);
   rid = tx.submit()`` (or the one-shot :meth:`DatalogServer.submit_txn`)
   queues one atomic multi-relation mixed batch; it commits as exactly one
-  store epoch, and consecutive *compatible* transactions (no row inserted
-  by one and retracted by another) coalesce into one group-commit epoch —
-  one Δ/∇ propagation pass for the whole group;
+  store epoch with one WAL commit frame, and consecutive *compatible*
+  transactions (no row inserted by one and retracted by another) coalesce
+  into one group-commit epoch — one Δ/∇ propagation pass and one fsync for
+  the whole group;
 * *fact-insert / fact-delete batches* (deprecated ``submit_insert`` /
   ``submit_delete``) — the historical single-relation surface; consecutive
   same-kind same-relation requests still coalesce into one update call;
@@ -42,11 +43,15 @@ update on the instance's own CUDA stream, and every query batch waits on the
 pinned epoch's event on its own stream, so reads never queue behind the
 writer's kernels (see ``instance.py``).
 
+With ``durability=`` (a root path, a ``DurabilityConfig`` or a
+``DurabilityManager`` from ``repro_torch.persist``) every update is logged
+to the WAL before its epoch publishes, and a checkpointer thread snapshots
+the latest epoch off a reader pin, after waiting on its CUDA event.
+
 Not ported yet, raising ``NotImplementedError`` that names the queue item:
-durability (``durability=``, ``checkpoint_now``, ``durability_stats``;
-ROADMAP.md item A8) and the analyzer's surfaces (``lint``,
-``explain(adorn=...)``, ``submit_query(..., on_demand=True)``; item A9).
-Nothing falls back silently.
+the analyzer's surfaces (``lint``, ``explain(adorn=...)``,
+``submit_query(..., on_demand=True)``; ROADMAP.md item A9).  Nothing falls
+back silently.
 
 Failure handling
 ----------------
@@ -54,7 +59,7 @@ Failure handling
 Malformed transactions (empty, unknown relation, arity/dtype mismatch,
 negative ids, a row both inserted and retracted) are rejected at
 ``tx.submit()``/``submit_txn`` time with a raised :class:`RequestError` —
-before anything reaches the queue.  The deprecated ``submit_*``
+before anything reaches the queue or the WAL.  The deprecated ``submit_*``
 shims keep their historical exception types (``KeyError``/``ValueError``)
 for shape problems and surface negative ids at apply time.  Failures that
 only surface at apply time fall back to per-transaction application.  A
@@ -86,11 +91,7 @@ from repro_torch.obs.profile import (
 from repro_torch.obs.stats import latency_summary
 from repro_torch.obs.trace import TRACER as _TRACE
 from repro_torch.serve_datalog.errors import DeadlineError, OverloadError, RequestError
-from repro_torch.serve_datalog.instance import (
-    DURABILITY_ITEM,
-    MaterializedInstance,
-    UpdateStats,
-)
+from repro_torch.serve_datalog.instance import MaterializedInstance, UpdateStats
 from repro_torch.serve_datalog.limits import ServerLimits
 from repro_torch.serve_datalog.plan_cache import ANALYSIS_ITEM
 
@@ -317,8 +318,32 @@ class DatalogServer:
         self._profiling_inflight = 0
         self._trace_autoenabled = False
         self._init_metrics()
+
+        # -- durability (optional): WAL + background checkpointer -------------
+        self.durability = None
+        self._ckpt_thread: threading.Thread | None = None
+        self._ckpt_stop = threading.Event()
+        self._ckpt_wake = threading.Event()
+        self.checkpoint_errors: list[str] = []
+        self._ckpt_err_lock = threading.Lock()
         if durability is not None:
-            raise NotImplementedError(DURABILITY_ITEM)
+            from repro_torch.persist.manager import DurabilityManager
+
+            self.durability = (
+                durability
+                if isinstance(durability, DurabilityManager)
+                else DurabilityManager(durability)
+            )
+            # a WAL with no base snapshot cannot rebuild the instance — the
+            # initial fixpoint is snapshotted once at attach time
+            self.durability.ensure_baseline(instance)
+            self._init_durability_metrics()
+            self._ckpt_thread = threading.Thread(
+                target=self._checkpoint_loop,
+                name="datalog-checkpointer",
+                daemon=True,
+            )
+            self._ckpt_thread.start()
 
     # -- metrics --------------------------------------------------------------
 
@@ -444,12 +469,37 @@ class DatalogServer:
             "datalog_explain_requests_total", "explain() calls served"
         )
 
+    def _init_durability_metrics(self) -> None:
+        reg = self.metrics_registry
+        wal = self.durability.wal
+        # the WAL / manager observe directly into these histogram sinks
+        wal.fsync_histogram = reg.histogram(
+            "datalog_wal_fsync_seconds", "WAL flush+fsync duration"
+        )
+        self.durability.checkpoint_histogram = reg.histogram(
+            "datalog_checkpoint_seconds", "Checkpoint duration",
+            buckets=(0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+                     10.0, 30.0, 60.0),
+        )
+        reg.gauge("datalog_wal_records", "Records appended to the WAL",
+                  fn=lambda: wal.appended_records)
+        reg.gauge("datalog_wal_syncs", "WAL fsync calls",
+                  fn=lambda: wal.syncs)
+        reg.gauge("datalog_wal_bytes", "WAL file size",
+                  fn=wal.size_bytes)
+        reg.gauge("datalog_checkpoints_total", "Checkpoints taken",
+                  fn=lambda: self.durability._stats.checkpoints)
+        reg.gauge("datalog_checkpoint_failures_total", "Checkpoints failed",
+                  fn=lambda: self.durability._stats.checkpoint_failures)
+        reg.gauge("datalog_last_checkpoint_epoch", "Epoch of newest snapshot",
+                  fn=lambda: self.durability.last_snapshot_epoch)
+
     def metrics(self) -> dict:
         """JSON-serialisable snapshot of every server metric.
 
-        The unified replacement for :meth:`mvcc_stats` — counters, callback
-        gauges, and histogram buckets in one dict keyed by Prometheus-style
-        metric names.
+        The unified replacement for :meth:`mvcc_stats` and
+        :meth:`durability_stats` — counters, callback gauges, and histogram
+        buckets in one dict keyed by Prometheus-style metric names.
         """
         return self.metrics_registry.snapshot()
 
@@ -468,8 +518,8 @@ class DatalogServer:
     def explain(self, program=None, *, text: bool = False, adorn=None):
         """Static annotated plan tree with cost/cardinality estimates.
 
-        Read-only and synchronous — never touches the queue or the store's
-        write path.  With no ``program`` the
+        Read-only and synchronous — never touches the queue, the WAL, or the
+        store's write path.  With no ``program`` the
         instance's admitted plan is explained against its *current* state
         (EDB actual sizes seed the estimates; stored IDB counts ride along
         as ``actuals``).  A candidate ``program`` (source text or
@@ -669,14 +719,14 @@ class DatalogServer:
         The whole transaction is validated here — empty transactions,
         unknown/non-EDB relations, arity or dtype mismatches, negative ids,
         and rows both inserted and retracted by the same transaction all
-        raise :class:`RequestError` before anything reaches the queue.
-        When applied, the transaction commits as exactly one
+        raise :class:`RequestError` before anything reaches the queue or
+        the WAL.  When applied, the transaction commits as exactly one
         epoch; its result in ``done`` is one ``UpdateStats`` with per-op
         slices.
 
         ``deadline`` is seconds-from-now on the server's clock.  A
-        transaction still queued past it is failed before it reaches the
-        writer; a transaction whose
+        transaction still queued past it is failed *before* it is
+        WAL-logged (recovery can never replay it); a transaction whose
         propagation pass crosses it between strata aborts and publishes
         nothing.
         """
@@ -766,7 +816,7 @@ class DatalogServer:
         """Serve at most one admission group; True while work remains.
 
         One iteration of :meth:`run`'s loop, exposed so a load generator
-        can interleave arrivals with service — and so
+        (``repro_torch.loadgen``) can interleave arrivals with service — and so
         the ``block`` overload policy can drain cooperatively from inside a
         blocked submission.  Semantics are identical to :meth:`run`:
         calling ``step()`` until it returns False is exactly one ``run()``.
@@ -790,7 +840,8 @@ class DatalogServer:
             self._serve_queries(group)
             return bool(self.queue or self._writer is not None)
         # deadline check at admission: an expired update is failed cheaply
-        # HERE, before the writer
+        # HERE — before the writer, before the WAL — so recovery can never
+        # replay a request whose submitter was told it timed out
         group = self._expire(group)
         if not group:
             return bool(self.queue or self._writer is not None)
@@ -847,7 +898,7 @@ class DatalogServer:
         Raises inflight-stage :class:`DeadlineError` once the clock passes
         ``deadline`` — the transaction aborts mid-propagation and publishes
         nothing (MVCC rollback), so a deadline-failed update leaves no
-        trace.
+        trace beyond its WAL abort marker.
         """
         if deadline is None:
             return None
@@ -1113,14 +1164,23 @@ class DatalogServer:
 
         The members' ops concatenate in submission order and apply as ONE
         instance transaction — one epoch, one Δ/∇ propagation pass over the
-        stratification (admission checked compatibility, so the merge is
-        equivalent to sequential application).  Each rid gets its own
-        ``UpdateStats`` copy carrying its own per-op slices.  A failed group
-        falls back per-transaction behind the same rollback-boundary guard
-        as the legacy path.
+        stratification, one framed WAL group with one fsync (admission
+        checked compatibility, so the merge is equivalent to sequential
+        application).  Each rid gets its own ``UpdateStats`` copy carrying
+        its own per-op slices.  A failed group falls back per-transaction
+        behind the same rollback-boundary guard as the legacy path;
+        acknowledged-failed transactions get txn-granularity abort markers
+        so recovery never redoes them.
         """
         all_ops = [op for r in group for op in r.payload]
         epoch0 = self.instance.epoch
+        token: str | None = None
+        if self.durability is not None:
+            # WAL-before-publish: the whole bracket (one fsync on the COMMIT
+            # frame) is durable before any effect can become visible
+            token = self.durability.log_txn(
+                [(rel, op, rows) for op, rel, rows in all_ops], epoch0 + 1
+            )
         # the coalesced pass runs under the SOONEST member's deadline: if any
         # member would miss, the whole group aborts (publishing nothing) and
         # the fallback below re-tries each member under its own deadline
@@ -1149,6 +1209,8 @@ class DatalogServer:
                 i += n
             return results
         except Exception as exc:
+            if self.durability is not None:
+                self.durability.abort_txn(token, epoch0 + 1)
             if self.instance.epoch != epoch0:
                 return {
                     r.rid: RequestError(
@@ -1166,7 +1228,8 @@ class DatalogServer:
             results = {}
             for r in group:
                 # a member that expired while the coalesced attempt burned
-                # its deadline is failed HERE, before its fallback attempt
+                # its deadline is failed HERE — before its fallback record
+                # reaches the WAL, so recovery can never replay it
                 now = self._clock()
                 if r.deadline is not None and now > r.deadline:
                     self._m_deadline["admission"].inc()
@@ -1181,6 +1244,13 @@ class DatalogServer:
                         stage="admission",
                     )
                     continue
+                predicted = self.instance.epoch + 1
+                tok: str | None = None
+                if self.durability is not None:
+                    tok = self.durability.log_txn(
+                        [(rel, op, rows) for op, rel, rows in r.payload],
+                        predicted,
+                    )
                 results[r.rid] = self._apply_with_retry(
                     lambda r=r: (
                         self.instance.apply_txn(r.payload)
@@ -1195,6 +1265,10 @@ class DatalogServer:
                     r.rid,
                     r.deadline,
                 )
+                if self.durability is not None and isinstance(
+                    results[r.rid], RequestError
+                ):
+                    self.durability.abort_txn(tok, predicted)
             return results
 
     def _apply_legacy_group(self, group: list[_Request]):
@@ -1209,6 +1283,15 @@ class DatalogServer:
         """
         fn = getattr(self.instance, self._UPDATE_FNS[group[0].kind])
         epoch0 = self.instance.epoch
+        if self.durability is not None:
+            # WAL-before-publish: every record of the group is durable (one
+            # batched fsync) before any effect can become visible.  The
+            # logged epoch is the one this batch publishes if it mutates;
+            # replay is redo-idempotent, so a no-op or failed batch's record
+            # is harmless.
+            self.durability.log_group(
+                [(r.rel, r.kind, r.payload) for r in group], epoch0 + 1
+            )
         # the deprecation already surfaced at submit_* time; delegating
         # through the shim here (kept so tests can monkeypatch
         # insert_facts/retract_facts) must not re-warn from library
@@ -1235,6 +1318,18 @@ class DatalogServer:
                 for r in group
             }
         except Exception:
+            if self.durability is not None:
+                # the coalesced attempt failed: abort every group record
+                # (each fallback request re-logs below at its own predicted
+                # epoch, so a checkpoint landing mid-fallback can't truncate
+                # a record whose effects it doesn't contain).  Without the
+                # abort markers, a batch that failed *transiently* here
+                # could succeed when its records replay on recovery — and
+                # the restored state would contain rows whose submitters
+                # were told they failed.
+                self.durability.abort_group(
+                    [(r.rel, r.kind, r.payload) for r in group], epoch0 + 1
+                )
             if self.instance.epoch != epoch0:
                 # a failed attempt must publish nothing — if an epoch landed
                 # anyway, re-applying would double-apply the committed rows
@@ -1250,8 +1345,8 @@ class DatalogServer:
             for r in group:
                 now = self._clock()
                 if r.deadline is not None and now > r.deadline:
-                    # expired during the coalesced attempt: fail before the
-                    # fallback attempt (same contract as txns)
+                    # expired during the coalesced attempt: fail before its
+                    # fallback record reaches the WAL (same contract as txns)
                     self._m_deadline["admission"].inc()
                     _TRACE.instant(
                         "deadline.miss", "serve", rid=r.rid, stage="admission",
@@ -1264,11 +1359,24 @@ class DatalogServer:
                         stage="admission",
                     )
                     continue
+                predicted = self.instance.epoch + 1
+                if self.durability is not None:
+                    self.durability.log_group(
+                        [(r.rel, r.kind, r.payload)], predicted
+                    )
                 results[r.rid] = self._apply_with_retry(
                     lambda r=r: quiet(lambda: fn(r.rel, r.payload)),
                     r.rid,
                     r.deadline,
                 )
+                if self.durability is not None and isinstance(
+                    results[r.rid], RequestError
+                ):
+                    # acknowledged as failed: its re-logged record must not
+                    # be redone on recovery
+                    self.durability.abort_group(
+                        [(r.rel, r.kind, r.payload)], predicted
+                    )
             return results
 
     # -- shared bookkeeping ---------------------------------------------------
@@ -1309,6 +1417,8 @@ class DatalogServer:
             self.done.pop(next(iter(self.done)))
         while len(self._profiles) > self.history:
             self._profiles.pop(next(iter(self._profiles)))
+        if self.durability is not None and is_update:
+            self._ckpt_wake.set()       # nudge the checkpointer's policy check
 
     def _finish_profile(
         self, r: _Request, result, t0: float, service: float, epoch: int
@@ -1426,15 +1536,65 @@ class DatalogServer:
         return s
 
 
-    # -- durability: not ported yet ---------------------------------------------
+    # -- durability (WAL + background checkpointer) ---------------------------
+
+    def _checkpoint_loop(self) -> None:
+        """Snapshot off a reader pin whenever the checkpoint policy fires.
+
+        Runs on its own daemon thread for the server's lifetime, woken after
+        each published update batch (and on a poll heartbeat).  Everything it
+        does is read-side — pin an epoch, wait on its CUDA event, copy its
+        immutable handles to the host, truncate the WAL — so it overlaps the
+        writer thread and in-flight query batches; it never takes the
+        instance write lock.
+        """
+        poll = self.durability.config.poll_seconds
+        while not self._ckpt_stop.is_set():
+            self._ckpt_wake.wait(timeout=poll)
+            self._ckpt_wake.clear()
+            if self._ckpt_stop.is_set():
+                break
+            try:
+                if self.durability.should_checkpoint(self.instance.epoch):
+                    self.durability.checkpoint(self.instance)
+            except Exception as e:      # noqa: BLE001 — keep serving on failure
+                with self._ckpt_err_lock:
+                    self.checkpoint_errors.append(f"{type(e).__name__}: {e}")
+                    del self.checkpoint_errors[:-64]
 
     def checkpoint_now(self) -> str | None:
-        """Force a checkpoint: needs the port's durability layer."""
-        raise NotImplementedError(DURABILITY_ITEM)
+        """Force a checkpoint of the latest published epoch (blocking)."""
+        if self.durability is None:
+            raise RuntimeError("server was constructed without durability=")
+        return self.durability.checkpoint(self.instance)
 
     def durability_stats(self) -> dict:
-        """WAL/checkpoint counters: needs the port's durability layer."""
-        raise NotImplementedError(DURABILITY_ITEM)
+        """WAL/checkpoint counters (empty dict when durability is off).
+
+        .. deprecated::
+            Prefer :meth:`metrics` — the unified registry carries the WAL
+            and checkpoint surfaces (``datalog_wal_*``,
+            ``datalog_checkpoint*``) including fsync/checkpoint duration
+            histograms this dict never had.  Kept (no warning) for callers
+            scraping the historical shape.
+        """
+        if self.durability is None:
+            return {}
+        s = self.durability.stats()
+        with self._ckpt_err_lock:
+            s["checkpoint_errors"] = len(self.checkpoint_errors)
+        return s
 
     def close(self) -> None:
-        """Nothing to stop or flush without durability; idempotent."""
+        """Stop the checkpointer thread and fsync-close the WAL.
+
+        Idempotent; does NOT take a final checkpoint — the WAL already holds
+        every published batch, which is the durability contract.
+        """
+        self._ckpt_stop.set()
+        self._ckpt_wake.set()
+        if self._ckpt_thread is not None:
+            self._ckpt_thread.join(timeout=5.0)
+            self._ckpt_thread = None
+        if self.durability is not None:
+            self.durability.close()

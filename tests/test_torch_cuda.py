@@ -238,3 +238,117 @@ def test_two_tower_on_cuda_matches_cpu(cuda):
     got = gpu.serve_scores(gpu_b)
     assert kg.gather_sum.launches == before + SMOKE.user_fields + SMOKE.item_fields
     torch.testing.assert_close(got.cpu(), model.serve_scores(cpu_b), atol=1e-4, rtol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# durability on the card
+# --------------------------------------------------------------------------
+
+
+def _same_relations(a, b, rels):
+    for rel in rels:
+        np.testing.assert_array_equal(a.relation(rel), b.relation(rel), err_msg=rel)
+
+
+def test_checkpoint_waits_for_the_writer_stream(cuda, tmp_path, monkeypatch):
+    """A checkpoint pinned while the writer's stream is still busy with the
+    epoch it pinned copies that epoch, not the buffers half-written.
+
+    The wrapped transaction leaves its tables and closure matrix filled with
+    -7 on the writer's stream, sleeps, then restores them, all after the
+    host has published: only a checkpoint that waits on the epoch's ready
+    event reads the right words."""
+    from repro_torch.core.relation import TupleRelation
+    from repro_torch.persist import DurabilityConfig, DurabilityManager, latest_valid_snapshot
+
+    edges = random_graph(300, 700, seed=5)
+    base, held = edges[:-40], edges[-40:]
+    gpu = MaterializedInstance(ALL["tc"].program, {"arc": base}, cache=PlanCache(), device=cuda)
+    cpu = MaterializedInstance(ALL["tc"].program, {"arc": base}, cache=PlanCache(), device="cpu")
+    mgr = DurabilityManager(DurabilityConfig(str(tmp_path), checkpoint_every_epochs=0,
+                                             checkpoint_wal_bytes=0))
+    mgr.checkpoint(gpu)                                   # the baseline
+    real = gpu._transactional
+
+    def busy(stats, apply_fn):
+        def fn(txn):
+            out = apply_fn(txn)
+            bufs = [h.rows for h in txn.store.values() if isinstance(h, TupleRelation)]
+            bufs += [st["m"] for st in txn.bm.values()]
+            saved = [t.clone() for t in bufs]
+            for t in bufs:
+                t.fill_(-7)
+            torch.cuda._sleep(500_000_000)                # about a quarter second
+            for t, s in zip(bufs, saved):
+                t.copy_(s)
+            return out
+        return real(stats, fn)
+
+    monkeypatch.setattr(gpu, "_transactional", busy)
+    gpu.apply_txn([("insert", "arc", held)])             # returns while the card sleeps
+    path = mgr.checkpoint(gpu)
+    cpu.apply_txn([("insert", "arc", held)])
+    snap = latest_valid_snapshot(str(tmp_path), device="cpu")
+    assert snap.path == path and snap.epoch == gpu.epoch == 1
+    for rel in ("arc", "tc"):
+        np.testing.assert_array_equal(snap.handles[rel].to_numpy(), cpu.relation(rel))
+    assert torch.equal(snap.bitmatrix[0]["m"], cpu._bm[0]["m"])
+    mgr.close()
+
+
+def test_restore_on_the_card_feeds_bitmm_from_uint32_files(cuda, tmp_path):
+    """A root written on the CPU (packed words in uint32 files, bit 31 set)
+    restores on the card; the WAL tail's insert runs ``bitmm`` and its
+    delete ``bitmm_fused_delta`` on those matrices, bit for bit the CPU's."""
+    from repro_torch.persist import list_snapshots
+    from repro_torch.serve_datalog import DatalogServer
+
+    edges = random_graph(90, 260, seed=6)
+    live = MaterializedInstance(ALL["tc"].program, {"arc": edges[:-12]}, cache=PlanCache(),
+                                device="cpu")
+    srv = DatalogServer(live, durability=str(tmp_path))
+    for ops in ([("insert", "arc", edges[-12:-6])], [("delete", "arc", edges[:6])]):
+        srv.submit_txn(ops)
+        srv.run()
+    srv.close()
+    words = np.load(f"{list_snapshots(str(tmp_path))[-1]}/bm.0.m.npy")
+    assert words.dtype == np.uint32 and (words >> 31).any()
+    before = (kb.bitmm.launches, kb.bitmm_fused_delta.launches)
+    got = MaterializedInstance.restore(str(tmp_path), cache=PlanCache())
+    assert got.device.type == "cuda"
+    assert kb.bitmm.launches > before[0] and kb.bitmm_fused_delta.launches > before[1]
+    want = MaterializedInstance.restore(str(tmp_path), cache=PlanCache(), device="cpu")
+    assert got.restore_stats == want.restore_stats
+    _same_relations(got, want, ("arc", "tc"))
+    _same_relations(got, live, ("arc", "tc"))
+    assert torch.equal(got._bm[0]["m"].cpu(), want._bm[0]["m"])
+    more = [("insert", "arc", edges[-6:])]
+    assert got.apply_txn(more).modes == want.apply_txn(more).modes == {0: "bitmatrix"}
+    _same_relations(got, want, ("arc", "tc"))
+
+
+def test_engine_checkpoints_resume_on_the_card(cuda, tmp_path):
+    edges = random_graph(200, 400, seed=7)
+    prog = ALL["tc"].program
+    cfg = EngineConfig(backend="tuple", checkpoint_every=3, checkpoint_dir=str(tmp_path))
+    want = Engine(EngineConfig(backend="tuple"), device="cpu").run(prog, {"arc": edges})
+    got = Engine(cfg, device=cuda).run(prog, {"arc": edges})
+    np.testing.assert_array_equal(got["tc"], want["tc"])
+    resumed = Engine(EngineConfig(backend="tuple")).run(prog, {"arc": edges},
+                                                      resume_from=str(tmp_path))
+    np.testing.assert_array_equal(resumed["tc"], want["tc"])
+
+
+def test_chunked_host_copy_matches_cpu(cuda, monkeypatch):
+    """Tables copied to the host through the pinned buffer in steps (sizes
+    off the step, one exactly on it) equal a plain ``.cpu()``."""
+    from repro_torch.core import relation
+
+    monkeypatch.setattr(relation, "HOST_COPY_CHUNK_BYTES", 4096)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for rows in (1, 511, 512, 513, 5000):
+        t = torch.randint(-2**31, 2**31 - 1, (rows, 2), generator=gen, device=cuda,
+                          dtype=torch.int32)
+        got = relation.to_host(t)
+        assert got.dtype == np.int32 and got.shape == (rows, 2)
+        np.testing.assert_array_equal(got, t.cpu().numpy())

@@ -31,7 +31,9 @@ def test_port_files_found():
     names = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES[:-1]}
     for module in ("serve_datalog/instance.py", "serve_datalog/server.py",
                    "serve_datalog/plan_cache.py", "core/versioned_store.py",
-                   "obs/profile.py", "obs/metrics.py"):
+                   "obs/profile.py", "obs/metrics.py", "persist/codec.py",
+                   "persist/manager.py", "persist/wal.py", "loadgen/scenario.py",
+                   "loadgen/arrivals.py", "loadgen/clock.py"):
         assert f"repro_torch/{module}" in names
 
 
@@ -53,6 +55,7 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.serve_datalog, repro_torch.serve_datalog.server\n"
         "import repro_torch.core.versioned_store, repro_torch.obs.profile\n"
         "import repro_torch.obs.metrics, repro_torch.obs.explain, repro_torch.obs.stats\n"
+        "import repro_torch.persist, repro_torch.loadgen\n"
         "print('ok')\n"
     )
     out = subprocess.run(
@@ -74,8 +77,8 @@ def test_engine_needs_cuda_or_an_explicit_cpu():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(EngineConfig(checkpoint_every=2, checkpoint_dir="ckpt"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(device="cpu").run("t(x) :- e(x).", {"e": [[1]]}, resume_from="ckpt")
+    # the reference's Pallas switch has no counterpart: the port always
+    # runs its own kernels on the card
     assert not hasattr(EngineConfig(), "use_pallas_bitmm")
+    with pytest.raises(TypeError, match="use_pallas_bitmm"):
+        EngineConfig(use_pallas_bitmm=True)

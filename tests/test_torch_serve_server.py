@@ -204,12 +204,6 @@ def _tiny():
 
 
 @pytest.mark.parametrize("call, item", [
-    (lambda: MaterializedInstance.restore("snapshots"), "A8"),
-    (lambda: _tiny()._replay_wal(None, 0), "A8"),
-    (lambda: _tiny()._restore_bitmatrix_state(None, {}, 3), "A8"),
-    (lambda: DatalogServer(_tiny(), durability="wal"), "A8"),
-    (lambda: DatalogServer(_tiny()).checkpoint_now(), "A8"),
-    (lambda: DatalogServer(_tiny()).durability_stats(), "A8"),
     (lambda: MaterializedInstance.specialize(_tiny(), None, (0,)), "A9"),
     (lambda: _tiny().seed_demand((0,)), "A9"),
     (lambda: _tiny().demand_query({0: 0}), "A9"),
@@ -220,8 +214,7 @@ def _tiny():
     (lambda: DatalogServer(_tiny()).submit_query("tc", src=0, on_demand=True), "A9"),
     (lambda: DatalogServer(_tiny()).lint(), "A9"),
     (lambda: DatalogServer(_tiny()).explain(adorn="tc^bf"), "A9"),
-], ids=["restore", "replay_wal", "restore_bitmatrix", "durability", "checkpoint_now",
-        "durability_stats", "specialize", "seed_demand", "demand_query",
+], ids=["specialize", "seed_demand", "demand_query",
         "instance_analysis", "cache_analysis", "get_demand", "on_demand", "lint",
         "explain_adorn"])
 def test_unported_parts_raise(call, item):
