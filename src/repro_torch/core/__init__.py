@@ -11,3 +11,22 @@ from repro_torch.core.ast import Atom, Rule, Program, Var, Const, Agg, Cmp
 from repro_torch.core.parser import parse
 from repro_torch.core.analyzer import analyze, Stratification
 from repro_torch.core.engine import Engine, EngineConfig, EvalStats
+from repro_torch.core.versioned_store import Snapshot, VersionedStore
+
+__all__ = [
+    "Snapshot",
+    "VersionedStore",
+    "Atom",
+    "Rule",
+    "Program",
+    "Var",
+    "Const",
+    "Agg",
+    "Cmp",
+    "parse",
+    "analyze",
+    "Stratification",
+    "Engine",
+    "EngineConfig",
+    "EvalStats",
+]

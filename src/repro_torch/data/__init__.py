@@ -1,2 +1,15 @@
 """Seeded synthetic data: graphs, program-analysis facts and the recsys
-click stream (numpy only)."""
+click stream (numpy only).  Deterministic given a seed."""
+
+from repro_torch.data.graphs import gnp_graph, rmat_graph
+from repro_torch.data.program_facts import andersen_facts, csda_facts, cspa_facts
+from repro_torch.data.recsys_stream import RecsysStream
+
+__all__ = [
+    "gnp_graph",
+    "rmat_graph",
+    "andersen_facts",
+    "csda_facts",
+    "cspa_facts",
+    "RecsysStream",
+]
