@@ -46,6 +46,19 @@ Phases, one output line each:
    flight, then while the writer thread inserts and deletes a 1 % batch in
    turn until 400 reads have overlapped it; the answers after the last
    insert publishes must be exact);
+6d. serve_demand — on-demand point queries (``submit_query(...,
+   on_demand=True)``) against a fresh full materialization plus the same
+   selections, as ``benchmarks/bench_serve_datalog.py``'s ``_bench_demand``
+   measures them, one line per case: ``serve_demand_tc`` (300 disjoint
+   chains of 60 nodes, ``tc(src=0)`` and ``tc(src=60)``, tuple backend),
+   ``serve_demand_csda`` (``csda_facts(3000, seed=0)``, absence checks on
+   the first 4 nodes with no ``null`` fact) and ``serve_demand_g10k`` (TC on
+   G10K through the PBME kernels, 4 point queries whose magic-set slices
+   of 10^4 rows run on the tuple operators, then a 1 % insert into the base
+   through the server and one more query, which must respecialize); each
+   with both arms' seconds, the specialize seconds, the
+   ``datalog_demand_*`` counts, the answer sizes and ``exact`` (every
+   demanded answer equal to the full selection bit for bit);
 6c. durability, run last, after phase 9, so that its gigabyte of files and
    its pinned host buffers are not around the earlier phases' timings —
    ``repro_torch.persist`` and warm restore, every root under
@@ -91,6 +104,8 @@ on restored instances, checkpointed and resumed engine runs — and not the
 from-scratch references or the live instances built to compare with), the
 card's name and power limit, and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero; so does a machine without CUDA.
+Every instance is admitted through the static analyzer's rewrites
+(``repro_torch.analysis``), the serving layer's default.
 """
 
 from __future__ import annotations
@@ -782,6 +797,146 @@ def serve_txn_phase(dev, scratch, same) -> None:
     emit("serve_txn", modes=st.modes, iterations=st.iterations, ops=len(st.ops),
          txn_epochs=txn_epochs, sequential_epochs=seq_epochs, txn_seconds=txn_s,
          sequential_seconds=seq_s, scratch_seconds=scratch_s, facts=facts)
+
+
+def serve_demand_phase(dev) -> dict:
+    """Phase 6d: on-demand point queries (``submit_query(..., on_demand=True)``)
+    against a fresh full materialization plus selections, as
+    ``benchmarks/bench_serve_datalog.py``'s ``_bench_demand`` measures them,
+    one line per case.  Every demanded answer must equal the full selection
+    bit for bit.  The g10k case then writes 1 % of the arcs into the base
+    through the server, and one more query must respecialize (the stale
+    slice is evicted) and still be exact.  Returns the kernels' launches of
+    the demand arms (the specialized programs are magic sets, not TC- or
+    SG-shaped, so they run the tuple operators: none expected)."""
+    from repro_torch.configs.datalog_workloads import ALL
+    from repro_torch.core import EngineConfig
+    from repro_torch.data.graphs import gnp_graph
+    from repro_torch.data.program_facts import csda_facts
+    from repro_torch.kernels import bitmm as kb
+    from repro_torch.serve_datalog import DatalogServer, MaterializedInstance, PlanCache
+
+    def launches():
+        return {"bitmm": kb.bitmm.launches, "bitmm_fused_delta": kb.bitmm_fused_delta.launches}
+
+    def counts(srv):
+        m = srv.metrics()
+        return {"hits": m["datalog_demand_hits_total"],
+                "misses": m["datalog_demand_misses_total"],
+                "fallbacks": m["datalog_demand_fallbacks_total"],
+                "specialize_seconds": m["datalog_demand_specialize_seconds"]["sum"]}
+
+    def on_demand(srv, rel, seeds):
+        """The demand arm: seconds and answers of one batch of point queries."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [srv.submit_query(rel, src=s, on_demand=True) for s in seeds]
+        done = srv.run()
+        torch.cuda.synchronize()
+        answers = [done[r] for r in rids]
+        for s, a in zip(seeds, answers):
+            check(isinstance(a, np.ndarray), f"serve_demand: {rel}(src={s}) failed: {a}")
+        return time.perf_counter() - t0, answers
+
+    def exact(label, rel, seeds, answers, full):
+        for s, got, want in zip(seeds, answers, full):
+            check(np.array_equal(got, want),
+                  f"{label}: {rel}(src={s}) on demand is not the full selection")
+        return True
+
+    chains, depth = 300, 60
+    nodes = np.arange(chains * depth).reshape(chains, depth)
+    chain_arc = np.stack([nodes[:, :-1].ravel(), nodes[:, 1:].ravel()], 1).astype(np.int32)
+
+    def csda_absent(base):
+        present = set(np.unique(base.relation("null")[:, 0]).tolist())
+        return [n for n in range(base.domain) if n not in present][:4]
+
+    g10k = gnp_graph(G10K, p=0.001, seed=1).astype(np.int32)
+    k = len(g10k) // 100
+    cases = [
+        ("tc", ALL["tc"].program, {"arc": chain_arc}, "tc", lambda base: [0, 60],
+         {"backend": "tuple"}),
+        ("csda", ALL["csda"].program, csda_facts(3000, seed=0), "null", csda_absent,
+         {"backend": "tuple"}),
+        ("g10k", ALL["tc"].program, {"arc": g10k[:-k]}, "tc",
+         lambda base: [0, G10K // 4, G10K // 2, 3 * G10K // 4], {"backend": "auto"}),
+    ]
+    demand_launches = {"bitmm": 0, "bitmm_fused_delta": 0}
+    for name, prog, edb, rel, pick, cfg in cases:
+        edb = {r: np.asarray(v, np.int32) for r, v in edb.items()}
+        cache = PlanCache()
+        # the base the demand server specializes from; warm the demand plan
+        # on a server that is then dropped, so the timed arm still builds
+        # the slice and seeds every binding
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        base = MaterializedInstance(prog, edb, EngineConfig(**cfg), cache=cache, device=dev)
+        torch.cuda.synchronize()
+        base_s = time.perf_counter() - t0
+        seeds = pick(base)
+        warm = DatalogServer(base)
+        warm.submit_query(rel, src=seeds[0], on_demand=True)
+        warm.run()
+        del warm
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = MaterializedInstance(prog, edb, EngineConfig(**cfg), cache=cache, device=dev)
+        full = [ref.query(rel, src=s) for s in seeds]
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        full_iterations = ref.engine.stats.iterations
+        del ref
+        torch.cuda.empty_cache()
+
+        srv = DatalogServer(base)
+        kb.bitmm.launches = kb.bitmm_fused_delta.launches = 0
+        demand_s, answers = on_demand(srv, rel, seeds)
+        used = launches()
+        for key in demand_launches:
+            demand_launches[key] += used[key]
+        (entry,) = srv._demand_instances.values()
+        line = {"seeds": seeds, "full_seconds": full_s, "demand_seconds": demand_s,
+                "full_iterations": full_iterations,
+                "slice_iterations": entry["instance"].engine.stats.iterations,
+                **counts(srv), "rows": [len(a) for a in answers],
+                "full_rows": [len(f) for f in full],
+                "exact": exact(f"serve_demand_{name}", rel, seeds, answers, full),
+                "demand_launches": used, "base_seconds": base_s,
+                "base_facts": sum(h.count for h in base.vstore.handles.values())}
+        c = counts(srv)
+        check(c["fallbacks"] == 0 and c["misses"] == 1,
+              f"serve_demand_{name}: {c['misses']} specializations, {c['fallbacks']} fallbacks")
+        if name == "g10k":
+            # a 1 % write to the base: the next query respecializes, on the card
+            check(all(len(a) >= G10K // 2 for a in answers),
+                  f"serve_demand_g10k: slices of {line['rows']} rows")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rid = srv.submit_txn([("insert", "arc", g10k[-k:])])
+            srv.run()
+            torch.cuda.synchronize()
+            write_s = time.perf_counter() - t0
+            check(not isinstance(srv.done[rid], Exception),
+                  f"serve_demand_g10k: the base write failed: {srv.done[rid]}")
+            misses = counts(srv)["misses"]
+            again_s, (again,) = on_demand(srv, rel, seeds[:1])
+            check(counts(srv)["misses"] == misses + 1,
+                  "serve_demand_g10k: the query after the write did not respecialize")
+            want = base.query(rel, src=seeds[0])
+            line["respecialize"] = {
+                "write_seconds": write_s, "write_modes": srv.done[rid].modes,
+                "seconds": again_s, "rows": len(again),
+                "exact": exact("serve_demand_g10k (after the write)", rel, seeds[:1],
+                               [again], [want]),
+                **counts(srv)}
+        emit(f"serve_demand_{name}", **line)
+        del srv, base
+        torch.cuda.empty_cache()
+    check(demand_launches == {"bitmm": 0, "bitmm_fused_delta": 0},
+          f"serve_demand: the magic-set slices launched {demand_launches}")
+    return demand_launches
 
 
 def dir_bytes(path: str) -> int:
@@ -1535,6 +1690,10 @@ def main() -> int:
     # counted apart: ``launches`` stays the TC/SG main path's count
     serve_launches = serve_phases(dev)
     serve_launches["gather_sum"] = 0
+
+    # -- 6d. on-demand queries through the magic-set slices --------------------------
+    serve_demand_phase(dev)
+    torch.cuda.empty_cache()
 
     # -- 7-9. the two-tower serving path at FULL ----------------------------------
     model = TwoTower(FULL, torch.Generator(device=dev).manual_seed(0), device=dev)

@@ -167,11 +167,12 @@ class Rule:
     def check_safety(self) -> None:
         """All head vars (and negated/comparison vars) bound by positive atoms.
 
-        The checks live in :mod:`repro_torch.core.checks` as coded
-        diagnostics (DL002/DL003/DL004/DL008); this method raises a
-        ``ValueError`` with the first error diagnostic's message.
+        Compat shim: the checks live in ``repro_torch.analysis.passes`` as
+        coded diagnostics (DL002/DL003/DL004/DL008 with source spans); this
+        method raises a ``ValueError`` with the first error diagnostic's
+        message.
         """
-        from repro_torch.core.checks import rule_safety_diagnostics
+        from repro_torch.analysis.passes import rule_safety_diagnostics
 
         for diag in rule_safety_diagnostics(self):
             raise ValueError(diag.message)
@@ -215,12 +216,14 @@ class Program:
     def validate(self) -> None:
         """Raise ``ValueError`` on the first safety or arity violation.
 
-        Raises on the first coded diagnostic of
-        :mod:`repro_torch.core.checks` (see :meth:`Rule.check_safety`).
+        Compat shim over the coded diagnostics in
+        ``repro_torch.analysis.passes`` (see :meth:`Rule.check_safety`);
+        ``repro_torch.analysis.lint_program`` collects *all* violations
+        instead of stopping at the first.
         """
         for r in self.rules:
             r.check_safety()
-        from repro_torch.core.checks import arity_diagnostics
+        from repro_torch.analysis.passes import arity_diagnostics
 
         for diag in arity_diagnostics(self):
             raise ValueError(diag.message)

@@ -28,6 +28,11 @@ A port of ``repro.serve_datalog`` (see its docstring for the architecture):
    background thread; ``MaterializedInstance.restore(path)`` loads the
    newest valid snapshot onto the device (packed PBME matrices included)
    and replays the WAL tail, bit for bit the pre-crash fixpoint.
+6. Admission and demand: every program is admitted through the static
+   analyzer's rewrites (``repro_torch.analysis``), so plan fingerprints
+   equal the reference's; ``DatalogServer.lint`` and ``explain(adorn=...)``
+   run the analyzer, and ``submit_query(..., on_demand=True)`` answers bound
+   queries from a magic-set specialized instance on the same device.
 
 Everything runs on CUDA unless given ``device="cpu"``::
 
@@ -35,12 +40,9 @@ Everything runs on CUDA unless given ``device="cpu"``::
     inst = MaterializedInstance(program_text, {"arc": edges})     # CUDA
     inst.apply_txn([("insert", "arc", new_edges)])
     inst.query("tc", src=3)
-
-Not ported yet (``NotImplementedError`` naming the ROADMAP.md item):
-admission analysis, lint and demand specialization (A9).  The port admits programs by
-validation alone, the reference's ``analysis=None``.
 """
 
+from repro_torch.analysis.demand import DemandConfig, DemandTransform
 from repro_torch.core.versioned_store import Snapshot, VersionedStore
 from repro_torch.obs.explain import PlanEstimate
 from repro_torch.obs.profile import FixpointProfile
@@ -83,4 +85,6 @@ __all__ = [
     "DurabilityManager",
     "PlanEstimate",
     "FixpointProfile",
+    "DemandConfig",
+    "DemandTransform",
 ]

@@ -19,9 +19,9 @@ class RequestError(Exception):
     those carry ``rid == -1``).
 
     Admission failures (a program rejected by the static analyzer) carry
-    the full coded diagnostic list in ``diagnostics``.  The port admits
-    programs by validation alone until the analyzer is ported (ROADMAP.md
-    item A9), so its admission errors carry none yet.
+    the full coded diagnostic list in ``diagnostics`` — each entry is a
+    ``repro_torch.analysis.Diagnostic`` with a stable ``DL...`` code and
+    source span, so clients can render or match on them.
     """
 
     def __init__(self, rid: int, error: str, diagnostics: list | None = None):

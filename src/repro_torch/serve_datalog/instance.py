@@ -59,10 +59,12 @@ the newest valid snapshot is copied onto the device on the writer's stream,
 packed PBME matrices included, and the WAL tail replays through
 :meth:`apply_txn`.
 
-**Not ported yet**, raising ``NotImplementedError`` that names the queue
-item: demand specialization (``specialize``, ``seed_demand``,
-``demand_query``) and admission analysis (any ``analysis`` but ``None``;
-ROADMAP.md item A9).
+**Admission and demand.**  Programs are admitted through the static
+analyzer (``analysis=ADMISSION_CONFIG``, see ``plan_cache.py``).
+:meth:`MaterializedInstance.specialize` builds a demand-specialized instance
+from a magic-set transform (``repro_torch.analysis.demand``) on the base
+instance's device; later bindings enter it through :meth:`seed_demand`, and
+:meth:`demand_query` answers one bound query from the demanded slice.
 
 Concurrency contract: any number of reader threads, one writer at a time
 (enforced by an internal lock; ``DatalogServer`` runs a single writer
@@ -81,6 +83,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.analysis import AnalysisConfig
+from repro_torch.analysis.demand import DemandTransform
 from repro_torch.core.analyzer import Stratum
 from repro_torch.core.ast import Program
 from repro_torch.core.bitmatrix import (
@@ -108,7 +112,7 @@ from repro_torch.obs.explain import PlanEstimate, estimate_plan, estimate_query_
 from repro_torch.obs.trace import TRACER as _TRACE
 from repro_torch.relational.sort import SENTINEL
 from repro_torch.serve_datalog.plan_cache import (
-    ANALYSIS_ITEM,
+    ADMISSION_CONFIG,
     CompiledPlan,
     PlanCache,
     default_cache,
@@ -209,13 +213,11 @@ class MaterializedInstance:
         edb: dict[str, np.ndarray],
         config: EngineConfig | None = None,
         cache: PlanCache | None = None,
-        analysis=None,
+        analysis: "AnalysisConfig | None" = ADMISSION_CONFIG,
         device=None,
     ):
-        if analysis is not None:
-            raise NotImplementedError(ANALYSIS_ITEM)
         self.cache = cache or default_cache()
-        self.plan: CompiledPlan = self.cache.get(program)
+        self.plan: CompiledPlan = self.cache.get(program, analysis=analysis)
         self.engine = Engine(config, device=device)
         self.device = self.engine.device
         self._stream = (
@@ -358,7 +360,7 @@ class MaterializedInstance:
         config: EngineConfig | None = None,
         cache: PlanCache | None = None,
         replay: bool = True,
-        analysis=None,
+        analysis: "AnalysisConfig | None" = ADMISSION_CONFIG,
         device=None,
     ) -> "MaterializedInstance":
         """Warm-start from a durability root: snapshot load + WAL replay.
@@ -386,8 +388,6 @@ class MaterializedInstance:
         from repro_torch.persist.manager import WAL_NAME
         from repro_torch.persist.wal import DeltaWAL
 
-        if analysis is not None:
-            raise NotImplementedError(ANALYSIS_ITEM)
         self = cls.__new__(cls)
         self.engine = Engine(config, device=device)
         self.device = self.engine.device
@@ -406,7 +406,7 @@ class MaterializedInstance:
                     f"{snap.path}: manifest has no program source; pass program="
                 )
             self.cache = cache or default_cache()
-            self.plan = self.cache.get(source)
+            self.plan = self.cache.get(source, analysis=analysis)
             if snap.fingerprint and self.plan.fingerprint != snap.fingerprint:
                 raise SnapshotError(
                     f"{snap.path}: snapshot fingerprint {snap.fingerprint} does "
@@ -654,20 +654,90 @@ class MaterializedInstance:
             return rows
         raise TypeError(type(h))
 
-    # -- demand specialization: not ported yet ---------------------------------
+    # -- demand specialization -----------------------------------------------
 
-    #: the demand transform of a specialized instance; always ``None`` here
-    demand = None
+    #: set on demand-specialized instances (see :meth:`specialize`); ``None``
+    #: on ordinary full-materialization instances
+    demand: "DemandTransform | None" = None
 
     @classmethod
-    def specialize(cls, base, transform, seed):
-        raise NotImplementedError(ANALYSIS_ITEM)
+    def specialize(
+        cls,
+        base: "MaterializedInstance",
+        transform: DemandTransform,
+        seed: tuple,
+    ) -> "MaterializedInstance":
+        """Build a demand-specialized instance from ``base``'s current EDB.
+
+        ``transform`` is a successful :class:`~repro_torch.analysis.demand.
+        DemandTransform`; ``seed`` is the first demanded binding (the bound
+        columns' constants, in pattern order).  The specialized instance
+        materializes only the demanded slice, on ``base``'s device with a
+        writer stream of its own: the magic-transformed program runs over a
+        copy of the base EDB plus a seed relation holding ``seed``.  Later
+        bindings enter through :meth:`seed_demand` — plain EDB inserts, so
+        the resumable semi-naïve Δ machinery (ingest variants) extends the
+        slice incrementally; the base instance's MVCC and WAL state are
+        never touched.
+        """
+        edb = {name: base.relation(name) for name in base.strat.edb}
+        first = tuple(int(v) for v in seed)
+        edb[transform.seed_rel] = np.asarray([first], np.int32).reshape(
+            1, len(transform.bound_cols)
+        )
+        inst = cls(
+            transform.program,
+            edb,
+            config=base.engine.config,
+            cache=base.cache,
+            analysis=None,
+            device=base.device,
+        )
+        inst.demand = transform
+        inst._demand_seeded = {first}
+        return inst
 
     def seed_demand(self, values) -> bool:
-        raise NotImplementedError(ANALYSIS_ITEM)
+        """Demand one more binding: insert it into the seed relation.
+
+        Returns True when the seed was new (the magic fixpoint extended
+        incrementally via the ordinary Δ path), False when it was already
+        demanded (no work).  Idempotent under races: a duplicate insert is
+        a no-op transaction that publishes nothing.
+        """
+        t = self.demand
+        if t is None:
+            raise RuntimeError("not a demand-specialized instance")
+        seed = tuple(int(v) for v in values)
+        if seed in self._demand_seeded:
+            return False
+        self.apply_txn(
+            [("insert", t.seed_rel, np.asarray([seed], np.int32))]
+        )
+        self._demand_seeded.add(seed)  # after publish: readers of the set
+        return True                    # must find the slice materialized
 
     def demand_query(self, bounds: dict) -> np.ndarray:
-        raise NotImplementedError(ANALYSIS_ITEM)
+        """Answer one bound query through the demanded slice.
+
+        ``bounds`` must bind every column of the transform's adornment with
+        a point constant (extra bounds on free columns pass through as
+        ordinary filters).  Constants outside the active domain match
+        nothing and are answered empty *without* seeding — seeding them
+        would force a domain-growth rebuild for a provably empty result.
+        The read pins the epoch the seed's transaction published and waits
+        on its event, as every read does.
+        """
+        t = self.demand
+        if t is None:
+            raise RuntimeError("not a demand-specialized instance")
+        seed = tuple(int(bounds[c]) for c in t.bound_cols)
+        if any(v < 0 or v >= self.domain for v in seed):
+            return np.zeros(
+                (0, self.plan.program.arity_of(t.answer_rel)), np.int32
+            )
+        self.seed_demand(seed)
+        return self.query(t.answer_rel, where=bounds)
 
     # -- writes --------------------------------------------------------------
 

@@ -16,12 +16,12 @@ repeated executions; here the plan is
   bucket, arity, domain) as the reference's tracing does, so
   ``stats()["warmed_buckets"]`` equals the reference's.
 
-**Admission.**  The reference admits programs through its static analyzer
-with semantics-preserving rewrites by default.  That analyzer is not ported
-yet (ROADMAP.md item A9), so the port admits by validation alone — the
-reference's ``analysis=None`` — and that is its default; any other
-``analysis`` raises ``NotImplementedError``.  The rewrites preserve every IDB
-bit for bit, so the relations equal the reference's under its default.
+**Admission.**  Every program is admitted through the static analyzer
+(:mod:`repro_torch.analysis`) under :data:`ADMISSION_CONFIG`, as the
+reference's is: a program with an error diagnostic is rejected, and the
+analyzer's *rewritten* program is the one planned and fingerprinted, so the
+fingerprints (and the snapshot manifests that carry them) equal the
+reference's.  ``analysis=None`` admits by validation alone.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from repro_torch.analysis import AnalysisConfig, AnalysisReport, analyze_program
 from repro_torch.core.analyzer import Stratification, analyze
 from repro_torch.core.ast import Program
 from repro_torch.core.seminaive import RuleVariant, delta_variants
@@ -39,11 +40,10 @@ from repro_torch.obs.trace import TRACER as _TRACE
 from repro_torch.relational.sort import SENTINEL
 from repro_torch.serve_datalog.errors import RequestError
 
-#: Where admission analysis, lint and demand specialization are queued.
-ANALYSIS_ITEM = (
-    "the static analyzer (admission rewrites, lint, demand transformation) is "
-    "not ported yet: ROADMAP.md item A9"
-)
+# Admission default: full error + lint passes, semantics-preserving
+# rewrites on, no PBME/demand explainers (those re-run whole-program
+# probes; ``lint`` requests get them instead).
+ADMISSION_CONFIG = AnalysisConfig(explain_pbme=False, explain_demand=False)
 
 
 def fingerprint(program: Program | str) -> str:
@@ -63,13 +63,21 @@ def fingerprint(program: Program | str) -> str:
 
 @dataclass
 class CompiledPlan:
-    """Logical plan: everything derivable from the program text alone (the
-    reference's admission ``report`` waits for the analyzer, item A9)."""
+    """Logical plan: everything derivable from the program text alone.
+
+    ``program`` (and ``fingerprint``) are the analyzer's *rewritten*
+    program — the one actually planned and evaluated.  Because every
+    rewrite is idempotent, re-admitting a rewritten program (e.g. a
+    snapshot manifest's ``program_source`` on warm start) maps to the
+    same fingerprint.  ``report`` carries the admission diagnostics
+    (``None`` when analysis was bypassed).
+    """
 
     fingerprint: str
     program: Program
     strat: Stratification
     delta_groups: list[dict[str, list[RuleVariant]]] = field(repr=False)
+    report: AnalysisReport | None = field(default=None, repr=False)
 
     def groups_for(self, stratum_index: int) -> dict[str, list[RuleVariant]]:
         return self.delta_groups[stratum_index]
@@ -121,6 +129,9 @@ class PlanCache:
     def __init__(self, capacity: int = 32):
         self.capacity = capacity
         self._plans: OrderedDict[str, CompiledPlan] = OrderedDict()
+        # demand-specialized plans, keyed by (source fingerprint, adornment,
+        # analysis + demand config fingerprints) — see get_demand
+        self._demand: OrderedDict[str, tuple] = OrderedDict()
         # (fp, bucket, arity, domain, device): the reference keys by the
         # first four; the device keeps a CPU warm-up from counting for CUDA
         self._warmed: set[tuple[str, int, int, int, str]] = set()
@@ -129,16 +140,23 @@ class PlanCache:
 
     # -- logical plans -----------------------------------------------------
 
-    def get(self, program: Program | str, analysis=None) -> CompiledPlan:
-        """Admit ``program``: parse, validate, stratify, cache.
+    def get(
+        self,
+        program: Program | str,
+        analysis: AnalysisConfig | None = ADMISSION_CONFIG,
+    ) -> CompiledPlan:
+        """Admit ``program``: analyze, rewrite, stratify, cache.
 
-        ``analysis`` must be ``None`` (validate-only admission, the
-        reference's ``analysis=None``): the analyzer is not ported yet.
-        ``ValueError`` from validation surfaces as a structured
-        :class:`RequestError`.
+        The static analyzer runs on every cache miss; a program with any
+        ``DL0xx`` error diagnostic is rejected with a :class:`RequestError`
+        carrying the full diagnostic list and is never cached.  What gets
+        planned (and fingerprinted) is the analyzer's rewritten program,
+        so the LRU key pairs the *source* fingerprint with the analysis
+        config's — two admissions under different rewrite configs never
+        share a slot.  ``analysis=None`` bypasses the analyzer
+        (validate-only admission); plain ``ValueError`` from validation
+        still surfaces as a structured :class:`RequestError`.
         """
-        if analysis is not None:
-            raise NotImplementedError(ANALYSIS_ITEM)
         with _TRACE.span("plan_cache.get", "serve") as sp:
             if isinstance(program, str):
                 from repro_torch.core.parser import DatalogSyntaxError, parse
@@ -149,30 +167,104 @@ class PlanCache:
                     raise RequestError(
                         -1, f"program rejected: {e.args[0]}"
                     ) from e
-            fp = fingerprint(program)
-            key = f"{fp}:raw"
+            source_fp = fingerprint(program)
+            key = f"{source_fp}:{analysis.fingerprint() if analysis else 'raw'}"
             if key in self._plans:
                 self.hits += 1
                 self._plans.move_to_end(key)
-                sp.set(fingerprint=fp, hit=True)
+                sp.set(fingerprint=self._plans[key].fingerprint, hit=True)
                 return self._plans[key]
             self.misses += 1
+            report: AnalysisReport | None = None
+            if analysis is not None:
+                report = analyze_program(program, analysis)
+                if not report.ok:
+                    first = report.errors[0]
+                    raise RequestError(
+                        -1,
+                        f"program rejected by static analysis "
+                        f"({len(report.errors)} error(s), first: "
+                        f"{first.render()})",
+                        diagnostics=report.diagnostics,
+                    )
+                program = report.rewritten
+            fp = fingerprint(program)
             sp.set(fingerprint=fp, hit=False)
             try:
                 strat = analyze(program)
             except ValueError as e:
+                # unreachable when the analyzer ran (it mirrors these
+                # checks), load-bearing for the bypass path
                 raise RequestError(-1, f"program rejected: {e}") from e
             plan = CompiledPlan(
-                fp, program, strat, [delta_variants(s) for s in strat.strata]
+                fp,
+                program,
+                strat,
+                [delta_variants(s) for s in strat.strata],
+                report=report,
             )
             self._plans[key] = plan
             while len(self._plans) > self.capacity:
                 self._plans.popitem(last=False)
             return plan
 
-    def get_demand(self, *args, **kwargs):
-        """Demand-specialized plans need the port's demand transformation."""
-        raise NotImplementedError(ANALYSIS_ITEM)
+    def get_demand(
+        self,
+        program: Program | str,
+        query_pred: str,
+        pattern: str,
+        analysis: AnalysisConfig | None = ADMISSION_CONFIG,
+        demand_config=None,
+        *,
+        sizes: dict[str, float] | None = None,
+        domain: int = 0,
+    ) -> tuple[CompiledPlan, "object"]:
+        """Admit a demand-specialized plan for ``query_pred^pattern``.
+
+        Returns ``(plan, transform)``.  Specialized plans are keyed by
+        ``(source fingerprint, adornment, analysis config, demand
+        config)`` so the same program specialized for different binding
+        patterns — or under different SIP strategies — never shares a
+        slot.  When the transform *falls back* (``transform.ok`` is
+        False: unstratifiable, unprofitable, unseedable — a coded
+        ``DL4xx`` info diagnostic, never an error) the returned plan is
+        the ordinary :meth:`get` plan of the unspecialized program.
+        ``sizes``/``domain`` feed the profitability estimate and are
+        *not* part of the key: profitability is decided at first
+        admission and revisited only when the entry is evicted.
+        """
+        from repro_torch.analysis.demand import DEFAULT_DEMAND, demand_transform
+
+        dconf = demand_config if demand_config is not None else DEFAULT_DEMAND
+        base = self.get(program, analysis=analysis)
+        key = (
+            f"{base.fingerprint}:{query_pred}^{pattern}"
+            f":{analysis.fingerprint() if analysis else 'raw'}"
+            f":{dconf.fingerprint()}"
+        )
+        if key in self._demand:
+            self.hits += 1
+            self._demand.move_to_end(key)
+            return self._demand[key]
+        self.misses += 1
+        with _TRACE.span(
+            "plan_cache.get_demand", "serve",
+            query=f"{query_pred}^{pattern}",
+        ) as sp:
+            transform = demand_transform(
+                base.program, query_pred, pattern, dconf,
+                sizes=sizes, domain=domain,
+            )
+            if transform.ok:
+                plan = self.get(transform.program, analysis=None)
+            else:
+                plan = base
+            sp.set(ok=transform.ok)
+        entry = (plan, transform)
+        self._demand[key] = entry
+        while len(self._demand) > self.capacity:
+            self._demand.popitem(last=False)
+        return entry
 
     # -- physical plans ----------------------------------------------------
 
@@ -226,7 +318,7 @@ class PlanCache:
     def stats(self) -> dict:
         return {
             "plans": len(self._plans),
-            "demand_plans": 0,
+            "demand_plans": len(self._demand),
             "hits": self.hits,
             "misses": self.misses,
             "warmed_buckets": len(self._warmed),

@@ -48,10 +48,12 @@ With ``durability=`` (a root path, a ``DurabilityConfig`` or a
 to the WAL before its epoch publishes, and a checkpointer thread snapshots
 the latest epoch off a reader pin, after waiting on its CUDA event.
 
-Not ported yet, raising ``NotImplementedError`` that names the queue item:
-the analyzer's surfaces (``lint``, ``explain(adorn=...)``,
-``submit_query(..., on_demand=True)``; ROADMAP.md item A9).  Nothing falls
-back silently.
+Static analysis and demand: :meth:`DatalogServer.lint` and
+``explain(adorn=...)`` run the analyzer (``repro_torch.analysis``) on the
+host; ``submit_query(..., on_demand=True)`` answers a bound query from a
+demand-specialized instance on the same device (an LRU of them, evicted when
+the base publishes a new epoch), or falls back to the full materialization
+with a coded ``DL4xx`` decision, counted in ``datalog_demand_fallbacks_total``.
 
 Failure handling
 ----------------
@@ -75,7 +77,7 @@ import random
 import threading
 import time
 import warnings
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field, replace
 
 import numpy as np
@@ -93,7 +95,6 @@ from repro_torch.obs.trace import TRACER as _TRACE
 from repro_torch.serve_datalog.errors import DeadlineError, OverloadError, RequestError
 from repro_torch.serve_datalog.instance import MaterializedInstance, UpdateStats
 from repro_torch.serve_datalog.limits import ServerLimits
-from repro_torch.serve_datalog.plan_cache import ANALYSIS_ITEM
 
 
 @dataclass
@@ -317,6 +318,17 @@ class DatalogServer:
         )
         self._profiling_inflight = 0
         self._trace_autoenabled = False
+        # -- demand specialization (on_demand queries) ------------------------
+        # LRU of demand-specialized instances keyed by (relation, binding
+        # pattern); an entry whose instance is None is a *cached fallback*
+        # (the transform fell back — DL4xx — so the pattern is not
+        # re-analyzed per query).  base_epoch invalidates entries when the
+        # base instance publishes a new epoch.
+        self._demand_instances: "OrderedDict[tuple[str, str], dict]" = (
+            OrderedDict()
+        )
+        self._demand_cap = limits.demand_instances if limits else 8
+        self._demand_lock = threading.Lock()
         self._init_metrics()
 
         # -- durability (optional): WAL + background checkpointer -------------
@@ -468,6 +480,51 @@ class DatalogServer:
         self._m_explain_requests = reg.counter(
             "datalog_explain_requests_total", "explain() calls served"
         )
+        # -- demand specialization (on_demand query routing) ------------------
+        self._m_demand_hits = reg.counter(
+            "datalog_demand_hits_total",
+            "on_demand queries served by a cached specialized instance",
+        )
+        self._m_demand_misses = reg.counter(
+            "datalog_demand_misses_total",
+            "on_demand queries that had to specialize (build or respecialize)",
+        )
+        self._m_demand_fallbacks = reg.counter(
+            "datalog_demand_fallbacks_total",
+            "on_demand queries served from the full materialization (DL4xx)",
+        )
+        self._m_demand_specialize = reg.histogram(
+            "datalog_demand_specialize_seconds",
+            "Demand transform + specialized-instance build time",
+        )
+        reg.gauge(
+            "datalog_demand_instances",
+            "Demand-specialized instances currently cached",
+            fn=lambda: len(self._demand_instances),
+        )
+        # -- static analysis (admission diagnostics + lint traffic) ----------
+        self._m_lint_requests = reg.counter(
+            "datalog_lint_requests_total", "lint() calls served"
+        )
+        plan = self.instance.plan
+        for severity in ("error", "warning", "info"):
+            reg.gauge(
+                "datalog_admission_diagnostics",
+                "Diagnostics from this instance's admission analysis",
+                labels={"severity": severity},
+                fn=lambda s=severity: (
+                    len(plan.report.by_severity(s)) if plan.report else 0
+                ),
+            )
+        reg.gauge(
+            "datalog_admission_rewrites",
+            "Rewrites the analyzer applied at admission (DL3xx)",
+            fn=lambda: (
+                sum(1 for d in plan.report.diagnostics
+                    if d.code.startswith("DL3"))
+                if plan.report else 0
+            ),
+        )
 
     def _init_durability_metrics(self) -> None:
         reg = self.metrics_registry
@@ -510,16 +567,33 @@ class DatalogServer:
     # -- static analysis ------------------------------------------------------
 
     def lint(self, source=None, *, outputs=None, config=None) -> list:
-        """Lint a program: needs the port's static analyzer."""
-        raise NotImplementedError(ANALYSIS_ITEM)
+        """Lint a program (default: this instance's admitted program).
+
+        Read-only and synchronous — never touches the queue, the WAL, or
+        the store.  Returns the full coded diagnostic list (errors,
+        warnings, infos — including the DL201 PBME-eligibility explainer);
+        a broken candidate program produces error diagnostics here rather
+        than raising, so clients can pre-flight programs before
+        re-admission.  ``outputs`` enables reachability linting (DL103).
+        """
+        from repro_torch.analysis import DEFAULT_CONFIG, lint_program
+
+        self._m_lint_requests.inc()
+        with _TRACE.span("server.lint", "serve"):
+            target = source if source is not None else self.instance.plan.program
+            return lint_program(
+                target,
+                config if config is not None else DEFAULT_CONFIG,
+                outputs=outputs,
+            )
 
     # -- EXPLAIN / ANALYZE ----------------------------------------------------
 
     def explain(self, program=None, *, text: bool = False, adorn=None):
         """Static annotated plan tree with cost/cardinality estimates.
 
-        Read-only and synchronous — never touches the queue, the WAL, or the
-        store's write path.  With no ``program`` the
+        Read-only and synchronous, like :meth:`lint` — never touches the
+        queue, the WAL, or the store's write path.  With no ``program`` the
         instance's admitted plan is explained against its *current* state
         (EDB actual sizes seed the estimates; stored IDB counts ride along
         as ``actuals``).  A candidate ``program`` (source text or
@@ -530,13 +604,45 @@ class DatalogServer:
         Returns a :class:`repro_torch.obs.explain.PlanEstimate` (``.to_json()``
         for the machine form); ``text=True`` returns the rendered tree.
 
-        ``adorn=`` (the demand-specialized plan) needs the port's demand
-        transformation and raises ``NotImplementedError``.
+        ``adorn="pred^bf"`` (or ``adorn=("pred", "bf")``) explains the
+        *demand-specialized* plan instead: the program (candidate or
+        admitted) is adorned and magic-rewritten for that binding pattern
+        through the shared plan cache, and the estimate covers the
+        transformed program with a unit-sized seed.  Returns
+        ``(DemandTransform, PlanEstimate)`` — or, with ``text=True``, the
+        rendered adorned program followed by the estimate tree.  A fallen-
+        back transform explains the unspecialized plan (its ``DL4xx``
+        diagnostic says why); an unknown predicate or malformed pattern is
+        a usage error (:class:`RequestError`).
         """
-        if adorn is not None:
-            raise NotImplementedError(ANALYSIS_ITEM)
         self._m_explain_requests.inc()
         with _TRACE.span("server.explain", "serve"):
+            if adorn is not None:
+                pred, pattern = (
+                    adorn.split("^", 1) if isinstance(adorn, str) else adorn
+                )
+                base = (
+                    self.instance.plan if program is None
+                    else self.instance.cache.get(program)
+                )
+                handles = self.instance.vstore.handles
+                sizes = {
+                    name: float(getattr(handles.get(name), "count", 0))
+                    for name in base.strat.edb
+                }
+                domain = self.instance.vstore.domain
+                try:
+                    plan, transform = self.instance.cache.get_demand(
+                        base.program, pred, pattern,
+                        sizes=sizes, domain=domain,
+                    )
+                except ValueError as e:
+                    raise RequestError(-1, f"invalid adornment: {e}") from e
+                sizes[transform.seed_rel] = 1.0
+                est = plan.explain(sizes=sizes, domain=domain)
+                if text:
+                    return transform.render() + "\n" + est.render_text()
+                return transform, est
             if program is None:
                 est = self.instance.explain()
             else:
@@ -696,14 +802,20 @@ class DatalogServer:
         the request's full span tree and estimate-vs-actual cardinalities;
         fetch the result with :meth:`profile` after it completes.
 
-        ``on_demand=True`` (demand-specialized serving) needs the port's
-        demand transformation and raises ``NotImplementedError``.
+        ``on_demand=True`` routes a *bound* query (point constants on one
+        or more columns of an IDB relation) through a demand-specialized
+        instance: the program is adorned and magic-rewritten for the
+        query's binding pattern and only the demanded slice is
+        materialized, incrementally extended per new binding.  Results are
+        bit-for-bit what the ordinary path returns.  Patterns that cannot
+        specialize (coded ``DL4xx`` decision: no point bounds, non-IDB
+        target, unstratifiable/unprofitable transform) silently fall back
+        to the full materialization — never a request error — counted in
+        ``datalog_demand_fallbacks_total``.  See ``docs/serving_api.md``.
         """
-        if on_demand:
-            raise NotImplementedError(ANALYSIS_ITEM)
         return self._enqueue(
             "query", rel,
-            {"where": where, "kw": kw},
+            {"where": where, "kw": kw, "on_demand": on_demand},
             deadline, profile,
         )
 
@@ -1013,12 +1125,15 @@ class DatalogServer:
             ):
                 results = {}
                 for r in group:
-                    fn = lambda r=r: self.instance.query(  # noqa: E731
-                        r.rel,
-                        where=r.payload["where"],
-                        snapshot=snap,
-                        **r.payload["kw"],
-                    )
+                    if r.payload.get("on_demand"):
+                        fn = lambda r=r: self._demand_serve(r, snap)  # noqa: E731
+                    else:
+                        fn = lambda r=r: self.instance.query(  # noqa: E731
+                            r.rel,
+                            where=r.payload["where"],
+                            snapshot=snap,
+                            **r.payload["kw"],
+                        )
                     if not (_TRACE.enabled or r.profile):
                         # the historical hot path, untouched: no span, no
                         # estimate, nothing allocated per request
@@ -1056,6 +1171,109 @@ class DatalogServer:
                             misestimation_ratio(len(res), est)
                         )
         return res
+
+    # -- demand-specialized serving (on_demand queries) -----------------------
+
+    def _demand_serve(self, r: _Request, snap) -> np.ndarray:
+        """One ``on_demand=True`` query: demand LRU, or silent fallback.
+
+        Every exit is a valid answer — fallbacks serve the ordinary
+        selection over the full materialization and are *counted*, never
+        surfaced as request errors.  Note the demand path reads the base
+        instance's **latest published** epoch (the slice is built from it
+        and invalidated when it changes), not the batch's pinned snapshot.
+        """
+        inst = self.instance
+        bounds = inst.resolve_bounds(r.payload["where"], **r.payload["kw"])
+        pattern = self._demand_pattern(r.rel, bounds)
+        if pattern is None:
+            # nothing to specialize on: no point bounds, or not IDB
+            self._m_demand_fallbacks.inc()
+            _TRACE.instant("demand.fallback", "serve", rid=r.rid, rel=r.rel)
+            return inst.query(r.rel, where=bounds, snapshot=snap)
+        seed = tuple(
+            int(bounds[c]) for c, ch in enumerate(pattern) if ch == "b"
+        )
+        if any(v < 0 or v >= inst.domain for v in seed):
+            # out-of-domain constants match nothing: answer empty without
+            # specializing (seeding would grow the slice's domain for a
+            # provably empty result)
+            self._m_demand_hits.inc()
+            return np.zeros((0, inst.plan.program.arity_of(r.rel)), np.int32)
+        dinst = self._demand_instance(r.rel, pattern, seed)
+        if dinst is None:
+            # cached fallback decision (DL4xx): counted per query served
+            self._m_demand_fallbacks.inc()
+            _TRACE.instant(
+                "demand.fallback", "serve",
+                rid=r.rid, rel=r.rel, pattern=pattern,
+            )
+            return inst.query(r.rel, where=bounds, snapshot=snap)
+        return dinst.demand_query(bounds)
+
+    def _demand_pattern(self, rel: str, bounds: dict) -> str | None:
+        """Binding pattern of one bound query, or None when the demand path
+        cannot apply (non-IDB relation, no point bounds, bad columns —
+        range bounds stay ordinary filters and never make a column 'b')."""
+        inst = self.instance
+        if rel not in inst.strat.idb or not bounds:
+            return None
+        arity = inst.plan.program.arity_of(rel)
+        if not all(isinstance(c, int) and 0 <= c < arity for c in bounds):
+            return None        # the fallback path raises the usual errors
+        point = {c for c, v in bounds.items() if not isinstance(v, tuple)}
+        if not point:
+            return None
+        return "".join("b" if c in point else "f" for c in range(arity))
+
+    def _demand_instance(self, rel: str, pattern: str, seed: tuple):
+        """The cached demand instance for ``(rel, pattern)`` — specializing
+        on miss or epoch-staleness, ``None`` for a fallen-back transform."""
+        key = (rel, pattern)
+        with self._demand_lock:
+            entry = self._demand_instances.get(key)
+            if (
+                entry is not None
+                and entry["base_epoch"] != self.instance.epoch
+            ):
+                # the base published since this slice was built: stale
+                del self._demand_instances[key]
+                entry = None
+            if entry is not None:
+                self._demand_instances.move_to_end(key)
+                if entry["instance"] is not None:
+                    self._m_demand_hits.inc()
+                return entry["instance"]
+            self._m_demand_misses.inc()
+            t0 = time.perf_counter()
+            with _TRACE.span(
+                "demand.specialize", "serve", rel=rel, pattern=pattern
+            ) as sp:
+                handles = self.instance.vstore.handles
+                sizes = {
+                    name: float(getattr(handles.get(name), "count", 0))
+                    for name in self.instance.strat.edb
+                }
+                _plan, transform = self.instance.cache.get_demand(
+                    self.instance.plan.program, rel, pattern,
+                    sizes=sizes, domain=self.instance.domain,
+                )
+                dinst = (
+                    MaterializedInstance.specialize(
+                        self.instance, transform, seed
+                    )
+                    if transform.ok else None
+                )
+                sp.set(ok=transform.ok)
+            self._m_demand_specialize.observe(time.perf_counter() - t0)
+            self._demand_instances[key] = {
+                "instance": dinst,
+                "transform": transform,
+                "base_epoch": self.instance.epoch,
+            }
+            while len(self._demand_instances) > self._demand_cap:
+                self._demand_instances.popitem(last=False)
+            return dinst
 
     # -- update batches (writer path) -----------------------------------------
 

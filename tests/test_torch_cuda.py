@@ -25,7 +25,7 @@ from repro_torch.kernels.ref import (
     bitmm_fused_delta_plain, bitmm_plain, gather_sum_plain, pack_bits,
 )
 from repro_torch.models.recsys import TwoTower
-from repro_torch.serve_datalog import MaterializedInstance, PlanCache
+from repro_torch.serve_datalog import DatalogServer, MaterializedInstance, PlanCache
 
 pytestmark = pytest.mark.cuda
 
@@ -171,6 +171,32 @@ def test_apply_txn_on_cuda_matches_cpu(cuda, name):
     for rel in (name, "arc"):
         np.testing.assert_array_equal(insts["cuda"].relation(rel), insts["cpu"].relation(rel))
     assert insts["cuda"].query(name, src=5).tolist() == insts["cpu"].query(name, src=5).tolist()
+
+
+def test_on_demand_tc_query_on_cuda_matches_the_full_selection(cuda):
+    """``on_demand=True`` point queries on the card: the magic-set slice runs
+    on the base's device and equals the selection over the full fixpoint,
+    before and after a write to the base makes the slice stale."""
+    edges = random_graph(400, 900, seed=5)
+    inst = MaterializedInstance(ALL["tc"].program, {"arc": edges[:-9]}, EngineConfig(),
+                                cache=PlanCache(), device=cuda)
+    srv = DatalogServer(inst)
+
+    def check(src):
+        rid = srv.submit_query("tc", src=src, on_demand=True)
+        got = srv.run()[rid]
+        full = inst.relation("tc")
+        np.testing.assert_array_equal(got, full[full[:, 0] == src])
+
+    for src in (int(edges[0, 0]), int(edges[1, 0]), 7):
+        check(src)
+    srv.submit_txn([("insert", "arc", edges[-9:])])
+    srv.run()
+    check(int(edges[0, 0]))
+    m = srv.metrics()
+    assert (m["datalog_demand_misses_total"], m["datalog_demand_fallbacks_total"]) == (2, 0)
+    (dinst,) = [e["instance"] for e in srv._demand_instances.values()]
+    assert dinst.device.type == "cuda"
 
 
 @pytest.mark.parametrize("name", ["tc", "sg", "cspa", "sssp"])

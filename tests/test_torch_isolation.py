@@ -33,7 +33,9 @@ def test_port_files_found():
                    "serve_datalog/plan_cache.py", "core/versioned_store.py",
                    "obs/profile.py", "obs/metrics.py", "persist/codec.py",
                    "persist/manager.py", "persist/wal.py", "loadgen/scenario.py",
-                   "loadgen/arrivals.py", "loadgen/clock.py"):
+                   "loadgen/arrivals.py", "loadgen/clock.py", "analysis/__init__.py",
+                   "analysis/__main__.py", "analysis/demand.py", "analysis/diagnostics.py",
+                   "analysis/linter.py", "analysis/passes.py", "analysis/rewrites.py"):
         assert f"repro_torch/{module}" in names
 
 
@@ -55,7 +57,7 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.serve_datalog, repro_torch.serve_datalog.server\n"
         "import repro_torch.core.versioned_store, repro_torch.obs.profile\n"
         "import repro_torch.obs.metrics, repro_torch.obs.explain, repro_torch.obs.stats\n"
-        "import repro_torch.persist, repro_torch.loadgen\n"
+        "import repro_torch.persist, repro_torch.loadgen, repro_torch.analysis.__main__\n"
         "print('ok')\n"
     )
     out = subprocess.run(

@@ -86,7 +86,7 @@ def _serve(server_cls, inst, durability, before, tail):
 
 def _ref_instance(prog, edb, cfg):
     return RefInstance(prog, edb, RefConfig(use_pallas_bitmm=False, **cfg),
-                       cache=RefCache(), analysis=None)
+                       cache=RefCache())
 
 
 def _port_instance(prog, edb, cfg):
@@ -111,7 +111,7 @@ def _assert_same_state(ref, port):
 
 def _restore_both(root, cfg):
     ref = RefInstance.restore(root, config=RefConfig(use_pallas_bitmm=False, **cfg),
-                              cache=RefCache(), analysis=None)
+                              cache=RefCache())
     port = MaterializedInstance.restore(root, config=EngineConfig(**cfg),
                                         cache=PlanCache(), device=CPU)
     assert port.restore_stats == ref.restore_stats
@@ -174,45 +174,69 @@ def test_same_history_same_files_and_cross_restore(case, tmp_path):
 
 
 def test_rewritten_fingerprint_is_the_known_difference(tmp_path):
-    """The reference admits through its analyzer's rewrites (the port by
-    validation alone, until ROADMAP item A9): its manifest's fingerprint is
-    the rewritten program's.  The port refuses that root for the original
-    source, which the rewrites change, and restores it from the manifest's
-    own (rewritten) program."""
+    """Once a known difference, now an equality: both packages admit through
+    the analyzer's rewrites, so both manifests hold the rewritten program's
+    fingerprint (``49712c469be1343d`` for TC with its base rule written
+    twice), and ``restore(root, program=source)`` with the original source
+    succeeds across packages both ways."""
     src = "tc(x,y) :- arc(x,y).\ntc(x,y) :- arc(x,y).\ntc(x,y) :- tc(x,z), arc(z,y)."
     edges = gnp_graph(40, p=0.05, seed=5).astype(np.int32)
-    ref = RefInstance(src, {"arc": edges[:-3]}, RefConfig(backend="tuple"),
-                      cache=RefCache())
-    assert ref.plan.fingerprint != PlanCache().get(src).fingerprint
-    root = str(tmp_path / "ref")
-    _serve(RefServer, ref, RefDurability(root, checkpoint_wal_bytes=0), [],
-           [[("insert", "arc", edges[-3:])]])
-    with pytest.raises(SnapshotError, match="fingerprint"):
-        MaterializedInstance.restore(root, program=src, device=CPU)
-    port = MaterializedInstance.restore(root, device=CPU)
-    assert port.plan.fingerprint == ref.plan.fingerprint
-    for rel in ("arc", "tc"):
-        np.testing.assert_array_equal(port.relation(rel), ref.relation(rel))
-    # and the other way round the reference refuses the port's fingerprint
-    port_root = str(tmp_path / "port")
-    live = MaterializedInstance(src, {"arc": edges}, EngineConfig(backend="tuple"),
-                                cache=PlanCache(), device=CPU)
-    DatalogServer(live, durability=port_root).close()
-    with pytest.raises(RefSnapshotError, match="fingerprint"):
-        RefInstance.restore(port_root, program=src, cache=RefCache())
+    cfg = {"backend": "tuple"}
+    ref = _ref_instance(src, {"arc": edges[:-3]}, cfg)
+    port = _port_instance(src, {"arc": edges[:-3]}, cfg)
+    assert port.plan.fingerprint == ref.plan.fingerprint == "49712c469be1343d"
+    roots = {"reference": str(tmp_path / "ref"), "port": str(tmp_path / "port")}
+    tail = [[("insert", "arc", edges[-3:])]]
+    _serve(RefServer, ref, RefDurability(roots["reference"], checkpoint_wal_bytes=0),
+           [], tail)
+    _serve(DatalogServer, port, DurabilityConfig(roots["port"], checkpoint_wal_bytes=0),
+           [], tail)
+    manifests = {k: _manifest(ref_list_snapshots(root)[-1]) for k, root in roots.items()}
+    assert manifests["port"]["fingerprint"] == manifests["reference"]["fingerprint"] == (
+        "49712c469be1343d")
+    assert manifests["port"] == manifests["reference"]
+    for root in roots.values():
+        got = MaterializedInstance.restore(root, program=src, config=EngineConfig(**cfg),
+                                           cache=PlanCache(), device=CPU)
+        want = RefInstance.restore(root, program=src, config=RefConfig(**cfg),
+                                   cache=RefCache())
+        assert got.plan.fingerprint == want.plan.fingerprint == ref.plan.fingerprint
+        _assert_same_state(want, got)
+        _assert_same_state(ref, got)
 
 
-@pytest.mark.parametrize("writer", ["reference", "port"])
-def test_engine_checkpoints_same_files_and_resume_across(writer, tmp_path):
-    prog = WORKLOADS["csda"].program
-    edb = {k: np.asarray(v, np.int32) for k, v in csda_facts(120, seed=1).items()}
+# (workload, backend, writer); the CSDA cases keep their ids, [reference] and [port]
+CHECKPOINT_CASES = [
+    pytest.param(wl, backend, writer,
+                 id=writer if wl == "csda" else f"{wl}-{backend}-{writer}")
+    for wl, backend in (("csda", "tuple"), ("tc", "tuple"), ("tc", "auto"),
+                        ("sg", "tuple"), ("sg", "auto"))
+    for writer in ("reference", "port")
+]
+
+
+def _checkpoint_edb(wl):
+    if wl == "csda":
+        return {k: np.asarray(v, np.int32) for k, v in csda_facts(120, seed=1).items()}
+    return {"arc": gnp_graph(60, p=0.04, seed=3).astype(np.int32)}
+
+
+@pytest.mark.parametrize("wl, backend, writer", CHECKPOINT_CASES)
+def test_engine_checkpoints_same_files_and_resume_across(wl, backend, writer, tmp_path):
+    """Checkpoints are written by the semi-naive loop: on the tuple path both
+    packages write the same files and resume from each other's; a PBME
+    stratum (``auto`` on TC and SG) runs the bit-matrix fixpoint, which
+    checkpoints in neither package, so there is nothing to resume from."""
+    prog = WORKLOADS[wl].program
+    edb = _checkpoint_edb(wl)
     dirs = {"reference": str(tmp_path / "ref"), "port": str(tmp_path / "port")}
-    ref = RefEngine(RefConfig(backend="tuple", checkpoint_every=3,
+    ref = RefEngine(RefConfig(backend=backend, use_pallas_bitmm=False, checkpoint_every=3,
                               checkpoint_dir=dirs["reference"]))
     want = ref.run(prog, edb)
-    port = Engine(EngineConfig(backend="tuple", checkpoint_every=3,
+    port = Engine(EngineConfig(backend=backend, checkpoint_every=3,
                                checkpoint_dir=dirs["port"]), device=CPU)
     got = port.run(prog, edb)
+    assert record_key(port.stats) == record_key(ref.stats)
     for rel in want:
         np.testing.assert_array_equal(got[rel], want[rel], err_msg=rel)
     snaps = list_snapshots(dirs[writer])
@@ -221,7 +245,16 @@ def test_engine_checkpoints_same_files_and_resume_across(writer, tmp_path):
                                                          else "reference"])]
     for a, b in zip(list_snapshots(dirs["reference"]), list_snapshots(dirs["port"])):
         assert _manifest(b) == _manifest(a)
+    if backend == "auto":
+        assert set(ref.stats.backend_used.values()) == {"bitmatrix"} and snaps == []
+        with pytest.raises(RefSnapshotError, match="no valid fixpoint checkpoint"):
+            RefEngine(RefConfig(backend=backend)).run(prog, edb, resume_from=dirs[writer])
+        with pytest.raises(SnapshotError, match="no valid fixpoint checkpoint"):
+            Engine(EngineConfig(backend=backend), device=CPU).run(
+                prog, edb, resume_from=dirs[writer])
+        return
     # resume from the older, mid-fixpoint checkpoint (live Δ views on disk)
+    assert len(snaps) >= 2
     for s in snaps[1:]:
         shutil.rmtree(s)
     assert _manifest(snaps[0])["extra_meta"]["delta_counts"]

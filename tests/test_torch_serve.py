@@ -1,8 +1,9 @@
 """The serving layer: ``repro_torch.serve_datalog`` against ``repro.serve_datalog``.
 
 Each test feeds the same seeded numpy EDB and the same transactions to the
-reference instance (validate-only admission, ``analysis=None``, and
-``use_pallas_bitmm=False`` so that it runs its plain compacted products) and
+reference instance (admission through the analyzer's rewrites, both
+packages' default, and ``use_pallas_bitmm=False`` so that it runs its plain
+compacted products) and
 to the port's on the CPU, and compares bit for bit after every step: every
 relation, every stored handle (rows with pads, counts, capacities), the
 epoch, and the ``UpdateStats`` (modes, iteration counts, per-op applied
@@ -122,7 +123,7 @@ def test_noops_and_domain_growth():
 
 
 # --------------------------------------------------------------------------
-# admission: fingerprints, the plan cache, analysis=None
+# admission: fingerprints, the plan cache, the analyzer's rewrites
 # --------------------------------------------------------------------------
 
 
@@ -131,7 +132,7 @@ def test_fingerprints_and_plans_match(name):
     prog = WORKLOADS[name].program
     assert fingerprint(prog) == ref_fingerprint(prog)
     ref_cache, port_cache = RefCache(), PlanCache()
-    ref_plan = ref_cache.get(prog, analysis=None)
+    ref_plan = ref_cache.get(prog)
     port_plan = port_cache.get(prog)
     assert port_plan.fingerprint == ref_plan.fingerprint
     assert repr(port_plan.program) == repr(ref_plan.program)
@@ -139,7 +140,9 @@ def test_fingerprints_and_plans_match(name):
         s.preds for s in ref_plan.strat.strata
     ]
     assert port_cache.get(prog) is port_plan
-    assert ref_cache.get(prog, analysis=None) is ref_plan
+    assert ref_cache.get(prog) is ref_plan
+    assert port_cache.get(prog, analysis=None).fingerprint == ref_cache.get(
+        prog, analysis=None).fingerprint
     assert port_cache.stats() == ref_cache.stats()
 
 
@@ -152,9 +155,10 @@ def test_warm_bookkeeping_matches(rng):
 
 @pytest.mark.parametrize("name", ["tc", "sg", "andersen", "neg"])
 def test_validate_only_admission_equals_reference_default(name):
-    """The reference admits through its analyzer's rewrites by default; they
-    preserve every IDB bit for bit, so the port's ``analysis=None``
-    relations equal the reference's default ones."""
+    """Both packages admit through the analyzer's rewrites by default: the
+    plans, fingerprints and admission diagnostics are equal, and so are the
+    relations.  The rewrites preserve every IDB bit for bit, so validate-only
+    admission (``analysis=None``) gives the same relations too."""
     if name == "neg":
         prog, edb = NEG_PROG, {"arc": random_edges(np.random.default_rng(4), 14, 30)}
     elif name == "andersen":
@@ -164,5 +168,12 @@ def test_validate_only_admission_equals_reference_default(name):
         edb = {"arc": random_edges(np.random.default_rng(4), 20, 50)}
     ref = RefInstance(prog, edb, RefConfig(use_pallas_bitmm=False), cache=RefCache())
     port = MaterializedInstance(prog, edb, cache=PlanCache(), device="cpu")
+    raw = MaterializedInstance(prog, edb, cache=PlanCache(), analysis=None, device="cpu")
+    assert port.plan.fingerprint == ref.plan.fingerprint
+    assert repr(port.plan.program) == repr(ref.plan.program)
+    assert ([d.to_dict() for d in port.plan.report.diagnostics]
+            == [d.to_dict() for d in ref.plan.report.diagnostics])
+    assert raw.plan.report is None
     for rel in ref.strat.idb:
         np.testing.assert_array_equal(port.relation(rel), ref.relation(rel), err_msg=rel)
+        np.testing.assert_array_equal(raw.relation(rel), ref.relation(rel), err_msg=rel)

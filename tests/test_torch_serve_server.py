@@ -6,8 +6,9 @@ the port's, serialized (``snapshot_reads=False``) so that every reply is
 deterministic, and the replies, per-request records and counters must be
 equal; the MVCC mode is held to the reference's contract (a read during an
 update sees the pinned epoch, coalesced transactions publish one epoch).
-Every part of the reference that the port does not carry yet raises
-``NotImplementedError`` naming its ROADMAP.md item.
+The analyzer's surfaces of the server (``lint``, ``explain(adorn=...)``,
+``on_demand`` queries) are held against the reference in
+``test_torch_analysis.py`` and ``test_torch_demand.py``.
 """
 
 import threading
@@ -28,7 +29,6 @@ from repro_torch.serve_datalog import (
     ServerLimits,
     UpdateStats,
 )
-from repro_torch.serve_datalog.plan_cache import ANALYSIS_ITEM
 from torch_parity import TC, TWO_EDB_TC, ServePair, stats_key
 
 COUNTERS = (
@@ -192,7 +192,7 @@ def test_explain_profile_and_stats():
 
 
 # --------------------------------------------------------------------------
-# what is not ported yet raises, and says which queue item ports it
+# the device
 # --------------------------------------------------------------------------
 
 
@@ -201,31 +201,6 @@ def _tiny():
         TC, {"arc": np.array([[0, 1], [1, 2]], np.int32)}, cache=PlanCache(),
         device="cpu",
     )
-
-
-@pytest.mark.parametrize("call, item", [
-    (lambda: MaterializedInstance.specialize(_tiny(), None, (0,)), "A9"),
-    (lambda: _tiny().seed_demand((0,)), "A9"),
-    (lambda: _tiny().demand_query({0: 0}), "A9"),
-    (lambda: MaterializedInstance(TC, {"arc": [[0, 1]]}, analysis=object(),
-                                  device="cpu"), "A9"),
-    (lambda: PlanCache().get(TC, analysis=object()), "A9"),
-    (lambda: PlanCache().get_demand(TC, "tc", "bf"), "A9"),
-    (lambda: DatalogServer(_tiny()).submit_query("tc", src=0, on_demand=True), "A9"),
-    (lambda: DatalogServer(_tiny()).lint(), "A9"),
-    (lambda: DatalogServer(_tiny()).explain(adorn="tc^bf"), "A9"),
-], ids=["specialize", "seed_demand", "demand_query",
-        "instance_analysis", "cache_analysis", "get_demand", "on_demand", "lint",
-        "explain_adorn"])
-def test_unported_parts_raise(call, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
-        call()
-
-
-def test_admission_default_is_validation_only():
-    assert "A9" in ANALYSIS_ITEM
-    with pytest.raises(RequestError, match="program rejected"):
-        MaterializedInstance("t(x) :- e(y).", {"e": [[1]]}, device="cpu")
 
 
 def test_instance_needs_cuda_or_an_explicit_cpu():

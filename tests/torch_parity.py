@@ -112,8 +112,7 @@ class ServePair:
 
     def __init__(self, prog, edb, **cfg):
         self.ref = RefInstance(
-            prog, edb, RefConfig(use_pallas_bitmm=False, **cfg), cache=RefCache(),
-            analysis=None,
+            prog, edb, RefConfig(use_pallas_bitmm=False, **cfg), cache=RefCache()
         )
         self.port = MaterializedInstance(
             prog, edb, EngineConfig(**cfg), cache=PlanCache(), device="cpu"
