@@ -59,7 +59,7 @@ Phases, one output line each:
    with both arms' seconds, the specialize seconds, the
    ``datalog_demand_*`` counts, the answer sizes and ``exact`` (every
    demanded answer equal to the full selection bit for bit);
-6c. durability, run last, after phase 9, so that its gigabyte of files and
+6c. durability, run last, after phase 13, so that its gigabyte of files and
    its pinned host buffers are not around the earlier phases' timings —
    ``repro_torch.persist`` and warm restore, every root under
    one temporary directory (removed at the end), each result held bit for
@@ -93,7 +93,28 @@ Phases, one output line each:
 9. recsys_retrieval — a 1,000,000-item corpus embedded with ``item_tower``,
    then ``retrieval_scores`` for one query at top_k = 100 (4 launches per
    call), held against the plain-bag version: scores within 1e-4, indices
-   equal wherever neighbouring reference scores differ by more than 1e-4.
+   equal wherever neighbouring reference scores differ by more than 1e-4;
+10. sharded_tc — one NCCL rank (a ``file://`` store in a temporary
+   directory) as a (1, 1) ``("data", "model")`` mesh: ``tc_fixpoint_sharded``
+   at G10K in its three schedules (allgather and rows1d run ``bitmm`` on
+   each rank's rows; psum a float product and a reduce-scatter), each
+   assembled M equal to ``tc_fixpoint``'s words bit for bit with the same
+   iterations, with seconds and the collectives' bytes per iteration;
+11. train_recsys — ``make_train_step`` (accum 1 and 2) and
+   ``make_compressed_dp_step`` on the card against three steps on the CPU at
+   ``two_tower_retrieval.SMOKE`` and a learning rate of 1e-2, the card's
+   step fed the CPU's gradients (its own within 1e-5 of each leaf's
+   largest entry; params, mu and nu within 1e-6), then at FULL (7.17 GB of tables, batch 512) five steps of
+   ``make_train_step`` and three of ``make_compressed_dp_step`` over the
+   mesh: step ms, samples/s, the optimizer's share (CUDA events), peak
+   memory; losses finite and no gather-sum launch (training bags are torch
+   ops);
+12. train_resilient — ``run_resilient`` at SMOKE with a failure injected at
+   step 3 (one restart, params within 1e-5 of a clean run), checkpoints
+   with the reference's npz keys, the last restored onto the card;
+13. launch_datalog — ``python -m repro_torch.launch.train --arch
+   datalog:tc --graph-n 1000`` as a subprocess, its sizes and iterations
+   equal to ``Engine.run``'s in this process.
 
 Then a ``kernels`` JSON line (``launches``: each kernel's count on its main
 path — TC and SG at G10K for ``bitmm`` and ``bitmm_fused_delta``, phases 8
@@ -101,8 +122,9 @@ and 9 for ``gather_sum``; ``serve_launches``: the timed serving batches of
 phase 6b; ``durable_launches``: the durability path's own work in phase
 6c — writes through a durable server, restores with their replay, writes
 on restored instances, checkpointed and resumed engine runs — and not the
-from-scratch references or the live instances built to compare with), the
-card's name and power limit, and, last, ``{"ok": true, "device": ...}``.
+from-scratch references or the live instances built to compare with;
+``sharded_launches``: phase 10's three sharded fixpoints), the card's name
+and power limit, and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero; so does a machine without CUDA.
 Every instance is admitted through the static analyzer's rewrites
 (``repro_torch.analysis``), the serving layer's default.
@@ -959,6 +981,15 @@ def fs_type(path: str) -> str:
     return kind
 
 
+def kernel_counters():
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from repro_torch.kernels import bitmm as kb
+    from repro_torch.kernels import gather_sum as kg
+
+    return {"bitmm": kb.bitmm, "bitmm_fused_delta": kb.bitmm_fused_delta,
+            "gather_sum": kg.gather_sum}
+
+
 DURABLE_LAUNCHES = {"bitmm": 0, "bitmm_fused_delta": 0, "gather_sum": 0}
 
 
@@ -967,11 +998,7 @@ def durable_path():
     """The durability path's own work: every kernel's count set to 0 just
     before the block and read just after it, and added to
     ``DURABLE_LAUNCHES``."""
-    from repro_torch.kernels import bitmm as kb
-    from repro_torch.kernels import gather_sum as kg
-
-    counters = {"bitmm": kb.bitmm, "bitmm_fused_delta": kb.bitmm_fused_delta,
-                "gather_sum": kg.gather_sum}
+    counters = kernel_counters()
     for c in counters.values():
         c.launches = 0
     try:
@@ -1410,6 +1437,336 @@ def scenario_crash_phase(dev, root) -> None:
          torn_bracket_dropped=True, burst=res.to_row(), exact=True)
 
 
+# the distributed and training phases: the schedule of the SMOKE runs (the
+# CPU parity tests'; it moves the weights by about 1e-2 a step) and FULL's
+# training batch
+TRAIN_SCHEDULE = dict(peak_lr=1e-2, warmup_steps=1, total_steps=10)
+TRAIN_BATCH, TRAIN_STEPS, DP_STEPS = 512, 5, 3
+SMOKE_BATCH, LAUNCH_GRAPH_N = 16, 1000
+
+
+def sharded_tc_phase(dev, mesh, edges, n) -> dict:
+    """Phase 10: ``tc_fixpoint_sharded`` over ``mesh`` (one NCCL rank on the
+    card) in its three schedules, each assembled M held bit for bit against
+    ``tc_fixpoint`` on the card with equal iterations.  The launch counts are
+    set to 0 just before the three runs and read just after: returned."""
+    from repro_torch.core.bitmatrix import edges_to_bitmatrix, popcount, tc_fixpoint
+    from repro_torch.core.distributed import (
+        SCHEDULES, assemble_bitmatrix, tc_fixpoint_sharded,
+    )
+
+    arc = edges_to_bitmatrix(torch.as_tensor(edges, device=dev), n)
+    want, want_iters = tc_fixpoint(arc, n)
+    words = want.shape[1]
+    for schedule in SCHEDULES:     # uncounted: set up the groups' NCCL communicators
+        tc_fixpoint_sharded(edges[:64] % 128, 128, mesh, schedule=schedule)
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    runs = {}
+    for schedule in SCHEDULES:
+        before = counters["bitmm"].launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, n_pad, iters = tc_fixpoint_sharded(edges, n, mesh, schedule=schedule)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        full = assemble_bitmatrix(m, mesh, ("data",), None if schedule == "rows1d" else "model")
+        check(torch.equal(full[:n, :words], want) and not bool(full[n:].any()),
+              f"sharded TC ({schedule}) differs from tc_fixpoint")
+        check(iters == want_iters, f"sharded TC ({schedule}) took {iters} iterations, "
+              f"tc_fixpoint {want_iters}")
+        per_iter = dict(tc_fixpoint_sharded.last_collective_bytes)
+        runs[schedule] = {"seconds": seconds, "iterations": iters, "n_pad": n_pad,
+                          "block": list(m.shape), "collective_bytes_per_iteration": per_iter,
+                          "bitmm_launches": counters["bitmm"].launches - before}
+        del m, full
+    launches = {name: c.launches for name, c in counters.items()}
+    check(launches["bitmm"] == 2 * want_iters and launches["bitmm_fused_delta"] == 0
+          and launches["gather_sum"] == 0,
+          f"sharded TC launched {launches}; expected {2 * want_iters} bitmm (allgather, rows1d)")
+    emit("sharded_tc", n=n, edges=len(edges), mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+         backend=torch.distributed.get_backend(), facts=int(popcount(want)),
+         iterations=want_iters, schedules=runs, launches=launches)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def recsys_batch(cfg, batch, step, dev, accum=1):
+    from repro_torch.data.recsys_stream import RecsysStream
+
+    b = RecsysStream(cfg.user_vocab, cfg.item_vocab, cfg.user_fields, cfg.item_fields,
+                     cfg.field_hots, cfg.n_dense_feat, batch=batch, seed=0).batch(step)
+    return {k: torch.as_tensor(v.reshape((accum, -1) + v.shape[1:]) if accum > 1 else v,
+                               device=dev) for k, v in b.items()}
+
+
+def card_against_cpu(dev, host_params, card_step, accum=1, compressed=False) -> dict:
+    """Three steps at SMOKE and TRAIN_SCHEDULE, of ``card_step`` on the card
+    and of ``make_train_step`` on the CPU, from the same params.  The card's
+    step is handed the CPU's gradients in place of its own, which are held
+    against them (1e-5 of each leaf's largest entry): Adam moves a weight by
+    about lr · sign(g), so a gradient entry that cancels to float32 noise
+    could otherwise take another sign on the card.  From equal gradients the
+    params agree within 1e-6, mu and nu within 1e-6 of each leaf's largest
+    entry, the counts exactly.  ``compressed``: ``card_step`` is
+    ``make_compressed_dp_step`` over one NCCL rank, and the CPU's gradients
+    take the int8 rounding with error feedback (its sum over one rank)."""
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from repro_torch.configs.two_tower_retrieval import SMOKE
+    from repro_torch.models.recsys import two_tower as tt
+    from repro_torch.optim import compress_state_init, dequantize_int8, quantize_int8
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train import step as train_step_mod
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    cpu = torch.device("cpu")
+    real = train_step_mod.value_and_grad
+    host_err = compress_state_init(host_params)
+    fed, grad_err = [], 0.0
+
+    def round_int8(g, e):                # compressed_psum over one rank, on the CPU
+        e.add_(g)
+        d = dequantize_int8(*quantize_int8(e))
+        e.sub_(d)
+        return d
+
+    def on_cpu(*args, **kwargs):
+        loss, g = real(*args, **kwargs)
+        fed.append((loss, tree_map(torch.clone, g)))    # the step sums into g
+        return loss, (tree_map(round_int8, g, host_err) if compressed else g)
+
+    def on_card(*args, **kwargs):
+        nonlocal grad_err
+        loss, g = real(*args, **kwargs)
+        want_loss, want = fed.pop(0)
+        grad_err = max(grad_err, rel(loss, want_loss),
+                       *(rel(a, b) for a, b in zip(tree_leaves(g), tree_leaves(want))))
+        return want_loss.to(dev), tree_map(lambda t: t.to(dev, copy=True), want)
+
+    cpu_step = make_train_step(tt.loss, SMOKE, accum=accum, **TRAIN_SCHEDULE)
+    host = init_train_state(tree_map(torch.clone, host_params))
+    card = init_train_state(tree_map(lambda t: t.to(dev, copy=True), host_params))
+    card_err = compress_state_init(card.params)
+    losses, metric_err = [], 0.0
+    try:
+        for i in range(3):
+            train_step_mod.value_and_grad = on_cpu
+            host, want = cpu_step(host, recsys_batch(SMOKE, SMOKE_BATCH, i, cpu, accum))
+            train_step_mod.value_and_grad = on_card
+            batch = recsys_batch(SMOKE, SMOKE_BATCH, i, dev, accum)
+            if compressed:
+                card, card_err, got = card_step(card, card_err, batch)
+            else:
+                card, got = card_step(card, batch)
+            metric_err = max(metric_err, *(rel(got[k], want[k]) for k in got))
+            losses.append(float(want["loss"]))
+    finally:
+        train_step_mod.value_and_grad = real
+    check(not fed, f"the card's step took {len(fed)} fewer gradients than the CPU's")
+    moved = max(float((a - b).abs().max()) for a, b in
+                zip(tree_leaves(host.params), tree_leaves(host_params)))
+    errs = {
+        "gradient_err_of_leaf_max": grad_err,
+        "metrics_rel_err": metric_err,
+        "params_max_abs_err": max(float((a.cpu() - b).abs().max()) for a, b in
+                                  zip(tree_leaves(card.params), tree_leaves(host.params))),
+        "moments_err_of_leaf_max": max(rel(a, b) for k in ("mu", "nu") for a, b in
+                                       zip(tree_leaves(card.opt[k]), tree_leaves(host.opt[k]))),
+    }
+    what = "compressed DP" if compressed else f"training (accum {accum})"
+    check(grad_err <= 1e-5, f"SMOKE {what}: the card's gradients differ from the CPU's by "
+          f"{grad_err} of each leaf's largest entry")
+    check(metric_err <= 1e-6 and errs["params_max_abs_err"] <= 1e-6
+          and errs["moments_err_of_leaf_max"] <= 1e-6
+          and int(card.opt["count"]) == int(host.opt["count"]) == 3
+          and int(card.step) == int(host.step) == 3,
+          f"SMOKE {what} on the card from the CPU's gradients differs: {errs}")
+    check(moved >= 1e-3, f"SMOKE {what}: the params moved only {moved} in three steps")
+    return {**errs, "params_moved": moved, "losses": losses}
+
+
+def train_recsys_phase(dev, mesh, full_cfg) -> None:
+    """Phase 11: ``make_train_step`` (accum 1 and 2) and
+    ``make_compressed_dp_step`` on the card against the CPU at SMOKE
+    (``card_against_cpu``), then training at ``full_cfg`` (FULL): plain
+    steps, then compressed data-parallel steps over ``mesh``'s ``data``
+    group, every MLP weight moved.  The gather-sum kernel must not launch:
+    training bags take the torch-ops route."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs.two_tower_retrieval import SMOKE
+    from repro_torch.models.recsys import two_tower as tt
+    from repro_torch.optim import compress_state_init
+    from repro_torch.train import init_train_state, make_compressed_dp_step, make_train_step
+    from repro_torch.train import step as train_step_mod
+
+    counters = kernel_counters()
+    gather_before = counters["gather_sum"].launches
+    host_params = tt.init_params(SMOKE, torch.Generator().manual_seed(0), device="cpu")
+    smoke = {f"accum{accum}": card_against_cpu(
+        dev, host_params, make_train_step(tt.loss, SMOKE, accum=accum, **TRAIN_SCHEDULE),
+        accum=accum) for accum in (1, 2)}
+    smoke["compressed_dp"] = card_against_cpu(
+        dev, host_params, make_compressed_dp_step(tt.loss, SMOKE, mesh, "data", **TRAIN_SCHEDULE),
+        compressed=True)
+
+    optimizer_events = []
+    real_update = train_step_mod.adamw_update
+
+    def timed_update(*args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = real_update(*args, **kwargs)
+        end.record()
+        optimizer_events.append((start, end))
+        return out
+
+    def run(step_fn, steps, first, with_err=None):
+        """``steps`` steps from batch ``first``: (ms per step, optimizer ms, losses)."""
+        step_ms, losses = [], []
+        nonlocal state, err_state
+        for i in range(steps):
+            batch = recsys_batch(full_cfg, TRAIN_BATCH, first + i, dev)
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            if with_err:
+                state, err_state, metrics = step_fn(state, err_state, batch)
+            else:
+                state, metrics = step_fn(state, batch)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(float(metrics["loss"]))
+        opt_ms = [s.elapsed_time(e) for s, e in optimizer_events[-steps:]]
+        check(all(np.isfinite(losses)), f"training losses {losses}")
+        med = statistics.median(step_ms)
+        return {"steps": steps, "batch": TRAIN_BATCH, "step_ms": step_ms, "median_step_ms": med,
+                "samples_per_s": TRAIN_BATCH / med * 1e3,
+                "optimizer_ms": opt_ms,
+                "optimizer_share": statistics.median(opt_ms) / med, "losses": losses}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tt.init_params(full_cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    state = init_train_state(params)
+    err_state = None
+    mlp_before = [t.clone() for t in tree_leaves((params["user_mlp"], params["item_mlp"]))]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    train_step_mod.adamw_update = timed_update
+    try:
+        plain = run(make_train_step(tt.loss, full_cfg), TRAIN_STEPS, 0)
+        plain["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        err_state = compress_state_init(state.params)
+        compressed = run(make_compressed_dp_step(tt.loss, full_cfg, mesh, "data"), DP_STEPS,
+                         TRAIN_STEPS, with_err=True)
+        compressed["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    finally:
+        train_step_mod.adamw_update = real_update
+    check(int(state.step) == int(state.opt["count"]) == TRAIN_STEPS + DP_STEPS,
+          f"train state at step {int(state.step)}, count {int(state.opt['count'])}")
+    check(not any(torch.equal(a, b) for a, b in zip(
+        mlp_before, tree_leaves((params["user_mlp"], params["item_mlp"])))),
+        "FULL training left an MLP weight where it started")
+    moved = counters["gather_sum"].launches - gather_before
+    check(moved == 0, f"training launched gather_sum {moved} times")
+    emit("train_recsys", smoke=smoke, config=full_cfg.name,
+         tables=[list(params["user_table"].shape), list(params["item_table"].shape)],
+         param_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(params)),
+         setup_seconds=setup_s, train_step=plain,
+         compressed_dp={**compressed, "world": torch.distributed.get_world_size()},
+         gather_sum_launches=moved)
+    del params, state, err_state
+    torch.cuda.empty_cache()
+
+
+def train_resilient_phase(dev, work) -> None:
+    """Phase 12: ``run_resilient`` at SMOKE on the card with a failure
+    injected at step 3, against an uninjected run; its checkpoints carry the
+    reference's keys."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs.two_tower_retrieval import SMOKE
+    from repro_torch.models.recsys import two_tower as tt
+    from repro_torch.train import (
+        CheckpointManager, init_train_state, make_train_step, restore_pytree, run_resilient,
+    )
+
+    def train(root, inject):
+        t0 = time.perf_counter()
+        out = run_resilient(
+            init_state_fn=lambda: init_train_state(
+                tt.init_params(SMOKE, torch.Generator(device=dev).manual_seed(0), device=dev)),
+            step_fn=make_train_step(tt.loss, SMOKE, **TRAIN_SCHEDULE),
+            data_fn=lambda i: recsys_batch(SMOKE, SMOKE_BATCH, i, dev),
+            manager=CheckpointManager(os.path.join(work, root), save_every=2, keep=3),
+            total_steps=6, device=dev, inject_failure_at=inject)
+        return out, time.perf_counter() - t0
+
+    (state, history, restarts), seconds = train("injected", 3)
+    (clean, clean_history, clean_restarts), clean_seconds = train("clean", None)
+    check(restarts == 1 and clean_restarts == 0, f"restarts {restarts} / {clean_restarts}")
+    err = max(float((a - b).abs().max())
+              for a, b in zip(tree_leaves(state.params), tree_leaves(clean.params)))
+    check(err <= 1e-5, f"the restarted run's params differ from a clean run's by {err}")
+
+    path = CheckpointManager(os.path.join(work, "injected")).latest()[1]
+    mlp = [f"{m}/{w}" for m in ("user_mlp", "item_mlp") for w in ("w0", "b0", "w1", "b1")]
+    tree = ["user_table", "item_table"] + mlp
+    expect = ({f"params/{k}" for k in tree} | {f"opt/mu/{k}" for k in tree}
+              | {f"opt/nu/{k}" for k in tree} | {"opt/count", "step", "__step__"})
+    with np.load(path) as ck:
+        keys = set(ck.files)
+        check(keys == expect, f"checkpoint keys {sorted(keys ^ expect)} differ from the "
+              "reference's layout")
+        check(int(ck["__step__"]) == 6 and ck["opt/count"].dtype == np.int32,
+              "checkpoint step or count")
+    restored, step = restore_pytree(path, state, device=dev)
+    check(step == 6 and all(torch.equal(a, b) for a, b in
+                            zip(tree_leaves(restored), tree_leaves(state))),
+          "the last checkpoint does not restore the final state")
+    emit("train_resilient", steps=6, restarts=restarts, history=len(history),
+         clean_history=len(clean_history), max_abs_err=err, seconds=seconds,
+         clean_seconds=clean_seconds, checkpoint_keys=len(keys))
+
+
+def launch_datalog_phase(dev, work) -> None:
+    """Phase 13: ``python -m repro_torch.launch.train --arch datalog:tc`` in
+    a subprocess on the card against ``Engine.run`` in this process."""
+    from repro_torch.configs.datalog_workloads import TC
+    from repro_torch.core import Engine, EngineConfig
+    from repro_torch.data.graphs import gnp_graph
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "datalog:tc",
+         "--graph-n", str(LAUNCH_GRAPH_N), "--ckpt-dir", os.path.join(work, "launch")],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+    )
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout)
+    eng = Engine(EngineConfig(checkpoint_every=50, checkpoint_dir=os.path.join(work, "engine")),
+                 device=dev)
+    out = eng.run(TC.program, {"arc": gnp_graph(LAUNCH_GRAPH_N, p=0.005, seed=0)})
+    want = {k: len(v) for k, v in out.items()}
+    iters = {str(k): v for k, v in eng.stats.iterations.items()}
+    check(got["output_sizes"] == want and got["iterations"] == iters
+          and got["backends"] == eng.stats.backend_used,
+          f"the launcher printed {got}, Engine.run gave {want} in {iters}")
+    emit("launch_datalog", process_seconds=seconds, launcher=got, output_sizes=want,
+         iterations=iters)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no GPU to drive",
@@ -1707,6 +2064,25 @@ def main() -> int:
     del model, bulk_stream, bulk
     torch.cuda.empty_cache()
 
+    # -- 10-13. the distributed layer and training -----------------------------------
+    # one NCCL rank on a (1, 1) mesh (NCCL refuses two ranks on one card); counted
+    # apart too: sharded TC's own launches
+    import torch.distributed as dist
+    from repro_torch.distributed import make_mesh
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train-") as work:
+        dist.init_process_group("nccl", init_method=f"file://{work}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            sharded_launches = sharded_tc_phase(dev, mesh, edges, G10K)
+            train_recsys_phase(dev, mesh, FULL)
+        finally:
+            dist.destroy_process_group()
+        train_resilient_phase(dev, work)
+        launch_datalog_phase(dev, work)
+    torch.cuda.empty_cache()
+
     # -- 6c. durability: snapshots, the WAL, restore, engine checkpoints -------------
     # last, so that its files and host buffers cannot slow phases 7-9; counted
     # apart too: the durability path's own launches, restored matrices included
@@ -1734,6 +2110,7 @@ def main() -> int:
             "launches": launches[name],
             "serve_launches": serve_launches[name],
             "durable_launches": DURABLE_LAUNCHES[name],
+            "sharded_launches": sharded_launches[name],
             "max_abs_err": err[name],
             "ms": timed[name]["ms"],
             "plain_ms": timed[name]["plain_ms"],

@@ -1,5 +1,6 @@
-"""RecStep on PyTorch: the Datalog engine and the two-tower model's serving
-path, ported from ``repro`` (JAX) to torch.
+"""RecStep on PyTorch: the Datalog engine, its serving layer and sharded
+fixpoints, and the two-tower model's serving and training, ported from
+``repro`` (JAX) to torch.
 
 Entry points::
 

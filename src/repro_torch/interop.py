@@ -9,6 +9,9 @@ reinterpreted as ``int32``.
 
 :func:`two_tower_from_reference` carries the reference's two-tower
 ``init_params`` pytree, as numpy arrays, into the port's ``TwoTower``.
+:func:`train_state_from_reference` and :func:`train_state_to_reference`
+carry a train state (params, AdamW's ``mu``, ``nu`` and ``count``, the
+step) across in the reference's tree layout, numpy on the reference's side.
 """
 
 from __future__ import annotations
@@ -17,9 +20,11 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch.core.relation import relation_from_blocks
 from repro_torch.models.recsys import RecsysConfig, TwoTower
+from repro_torch.train.state import TrainState
 
 
 def store_from_reference(
@@ -75,3 +80,25 @@ def two_tower_from_reference(params: dict, cfg: RecsysConfig, device) -> TwoTowe
                              f"the config makes {tuple(own[name].shape)}")
         own[name].data.copy_(torch.tensor(arr, dtype=own[name].dtype))
     return model
+
+
+def train_state_from_reference(state, device) -> TrainState:
+    """The reference's ``TrainState(params, opt, step)`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``) → the port's, on ``device``, with the
+    same tree paths and dtypes."""
+    params, opt, step = state
+
+    def conv(a):
+        return torch.tensor(np.asarray(a), device=device)
+
+    return TrainState(tree_map(conv, params), tree_map(conv, opt), conv(step))
+
+
+def train_state_to_reference(state: TrainState) -> tuple:
+    """The inverse: ``(params, opt, step)`` as numpy trees, in the reference's
+    layout (``repro.train.TrainState(*out)`` rebuilds its state)."""
+
+    def conv(t):
+        return t.detach().cpu().numpy().copy()
+
+    return tree_map(conv, state.params), tree_map(conv, state.opt), conv(state.step)

@@ -1,10 +1,16 @@
 """EmbeddingBag and sampled softmax: the recsys hot path as relational ops.
 
 A bag lookup is a join with the embedding table followed by a SUM aggregate.
-The dense, unweighted sum, which the two-tower serving path runs, goes to
-the hand-written gather-sum kernel
-(:func:`repro_torch.kernels.gather_sum.gather_sum`); every other form
-(ragged bags, weights, ``mode="mean"``) is torch ops.
+Two routes, chosen by whether a gradient is needed, not by failure:
+
+* no gradient (serving): the dense, unweighted sum goes to the hand-written
+  gather-sum kernel (:func:`repro_torch.kernels.gather_sum.gather_sum`; its
+  plain version for a CPU tensor);
+* under autograd (``table.requires_grad`` with grad mode on: training) it is
+  torch ops, a masked take plus a sum, as the reference trains through
+  ``jnp.take`` and not its kernel, which has no backward.
+
+Every other form (ragged bags, weights, ``mode="mean"``) is torch ops.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ def embedding_bag(
     if mode not in ("sum", "mean"):
         raise ValueError(f"embedding_bag: unknown mode {mode!r}")
     if bag_ids is None:
-        if weights is None and mode == "sum":
+        training = table.requires_grad and torch.is_grad_enabled()
+        if weights is None and mode == "sum" and not training:
             return gather_sum(indices, table)
         num_bags, k = indices.shape
         flat = indices.reshape(-1)

@@ -378,3 +378,219 @@ def test_chunked_host_copy_matches_cpu(cuda, monkeypatch):
         got = relation.to_host(t)
         assert got.dtype == np.int32 and got.shape == (rows, 2)
         np.testing.assert_array_equal(got, t.cpu().numpy())
+
+
+# --------------------------------------------------------------------------
+# the distributed layer and training on the card: one NCCL rank
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A (1, 1) mesh over an NCCL group of world size 1 (NCCL refuses two
+    ranks on one card), joined through a ``file://`` store."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs only on the card")
+    import torch.distributed as dist
+
+    from repro_torch.distributed import make_mesh
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("schedule", ["allgather", "rows1d", "psum"])
+def test_sharded_tc_on_the_card_matches_tc_fixpoint(nccl_mesh, schedule):
+    from repro_torch.core.bitmatrix import edges_to_bitmatrix, tc_fixpoint
+    from repro_torch.core.distributed import assemble_bitmatrix, tc_fixpoint_sharded
+
+    n = 700
+    edges = random_graph(n, 2000, seed=11)
+    want, want_iters = tc_fixpoint(edges_to_bitmatrix(torch.as_tensor(edges, device="cuda"),
+                                                      n), n)
+    before = kb.bitmm.launches
+    m, n_pad, iters = tc_fixpoint_sharded(edges, n, nccl_mesh, schedule=schedule)
+    full = assemble_bitmatrix(m, nccl_mesh, ("data",), None if schedule == "rows1d" else "model")
+    assert m.is_cuda and n_pad == 768 and iters == want_iters
+    assert torch.equal(full[:n, :want.shape[1]], want) and not full[n:].any()
+    assert kb.bitmm.launches - before == (0 if schedule == "psum" else iters)
+
+
+def _smoke_state(device):
+    """A fresh SMOKE train state (the same draw on every call) on ``device``."""
+    from repro_torch.models.recsys import two_tower as tt
+    from repro_torch.train import init_train_state
+
+    params = tt.init_params(SMOKE, torch.Generator().manual_seed(2), device="cpu")
+    return init_train_state(_tree_to(params, device)), tt
+
+
+def _tree_to(tree, device):
+    from torch.utils._pytree import tree_map
+
+    return tree_map(lambda t: t.detach().to(device, copy=True), tree)
+
+
+def _smoke_batch(step, device, accum=1):
+    b = RecsysStream(SMOKE.user_vocab, SMOKE.item_vocab, SMOKE.user_fields, SMOKE.item_fields,
+                     SMOKE.field_hots, SMOKE.n_dense_feat, batch=16).batch(step)
+    return {k: torch.as_tensor(v.reshape((accum, -1) + v.shape[1:]) if accum > 1 else v,
+                               device=device) for k, v in b.items()}
+
+
+def test_gradients_and_update_on_the_card_match_cpu(cuda):
+    """The loss's gradients on the card equal the CPU's within 1e-5 of each
+    leaf's largest entry, and AdamW given the same gradients updates alike."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.optim import adamw_update
+    from repro_torch.train.step import value_and_grad
+
+    (cpu_state, tt), (gpu_state, _) = _smoke_state("cpu"), _smoke_state(cuda)
+    loss, grads = value_and_grad(tt.loss, cpu_state.params, _smoke_batch(0, "cpu"), SMOKE)
+    before = kg.gather_sum.launches
+    gpu_loss, gpu_grads = value_and_grad(tt.loss, gpu_state.params, _smoke_batch(0, cuda),
+                                         SMOKE)
+    assert kg.gather_sum.launches == before          # training bags are torch ops
+    torch.testing.assert_close(gpu_loss.cpu(), loss, atol=0, rtol=1e-5)
+    for a, b in zip(tree_leaves(gpu_grads), tree_leaves(grads)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5 * float(b.abs().max()), rtol=0)
+    params, _, gnorm = adamw_update(cpu_state.params, grads, cpu_state.opt, 1e-2)
+    gpu_params, _, gpu_gnorm = adamw_update(gpu_state.params, _tree_to(grads, cuda),
+                                            gpu_state.opt, 1e-2)
+    torch.testing.assert_close(gpu_gnorm.cpu(), gnorm, atol=0, rtol=1e-6)
+    for a, b in zip(tree_leaves(gpu_params), tree_leaves(params)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-6, rtol=0)
+
+
+# moves the weights by about 1e-2 a step (the CPU parity tests' schedule)
+TRAIN_SCHEDULE = dict(peak_lr=1e-2, warmup_steps=1, total_steps=10)
+
+
+def _paired_steps(monkeypatch, card_step, accum=1, compressed=False):
+    """Three steps at SMOKE and ``TRAIN_SCHEDULE``: ``card_step`` on the
+    card and ``make_train_step`` on the CPU, from the same params.  The
+    card's step is handed the CPU's gradients in place of its own, which
+    are held against them (1e-5 of each leaf's largest entry): Adam moves a
+    weight by about lr · sign(g), so a gradient entry that cancels to
+    float32 noise could otherwise take another sign on the card.  With
+    ``compressed`` the CPU's gradients take the int8 rounding with error
+    feedback, which is ``compressed_psum`` over one rank.  Returns the
+    card's and the CPU's final states and the per-step metrics."""
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from repro_torch.optim import compress_state_init, dequantize_int8, quantize_int8
+    from repro_torch.train import make_train_step
+    from repro_torch.train import step as train_step_mod
+
+    real = train_step_mod.value_and_grad
+    (host, tt), (card, _) = _smoke_state("cpu"), _smoke_state("cuda")
+    host_err, card_err = compress_state_init(host.params), compress_state_init(card.params)
+    fed = []
+
+    def round_int8(g, e):
+        e.add_(g)
+        d = dequantize_int8(*quantize_int8(e))
+        e.sub_(d)
+        return d
+
+    def on_cpu(*args, **kwargs):
+        loss, g = real(*args, **kwargs)
+        fed.append((loss, _tree_to(g, "cpu")))
+        return loss, (tree_map(round_int8, g, host_err) if compressed else g)
+
+    def on_card(*args, **kwargs):
+        loss, g = real(*args, **kwargs)
+        want_loss, want = fed.pop(0)
+        torch.testing.assert_close(loss.cpu(), want_loss, atol=0, rtol=1e-5)
+        for a, b in zip(tree_leaves(g), tree_leaves(want)):
+            torch.testing.assert_close(a.cpu(), b, atol=1e-5 * float(b.abs().max()), rtol=0)
+        return want_loss.cuda(), _tree_to(want, "cuda")
+
+    cpu_step = make_train_step(tt.loss, SMOKE, accum=accum, **TRAIN_SCHEDULE)
+    metrics = []
+    for i in range(3):
+        monkeypatch.setattr(train_step_mod, "value_and_grad", on_cpu)
+        host, want = cpu_step(host, _smoke_batch(i, "cpu", accum))
+        monkeypatch.setattr(train_step_mod, "value_and_grad", on_card)
+        if compressed:
+            card, card_err, got = card_step(card, card_err, _smoke_batch(i, "cuda"))
+        else:
+            card, got = card_step(card, _smoke_batch(i, "cuda", accum))
+        metrics.append((got, want))
+    monkeypatch.undo()
+    assert not fed
+    return card, host, metrics
+
+
+def _assert_card_state_matches(card, host):
+    """Params within 1e-6, moments within 1e-6 of each leaf's largest entry,
+    counts equal, and the params moved by at least 1e-3 from the start."""
+    from torch.utils._pytree import tree_leaves
+
+    start, _ = _smoke_state("cpu")
+    moved = max(float((a - b).abs().max())
+                for a, b in zip(tree_leaves(host.params), tree_leaves(start.params)))
+    assert moved >= 1e-3
+    for a, b in zip(tree_leaves(card.params), tree_leaves(host.params)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-6, rtol=0)
+    for k in ("mu", "nu"):
+        for a, b in zip(tree_leaves(card.opt[k]), tree_leaves(host.opt[k])):
+            torch.testing.assert_close(a.cpu(), b, atol=1e-6 * float(b.abs().max()), rtol=0)
+    assert int(card.opt["count"]) == int(host.opt["count"]) == 3
+    assert int(card.step) == int(host.step) == 3
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_train_step_on_the_card_matches_cpu(cuda, monkeypatch, accum):
+    """Three steps at a learning rate of 1e-2, the card's step fed the CPU's
+    gradients (its own checked against them): the states agree."""
+    from repro_torch.train import make_train_step
+
+    _, tt = _smoke_state("cpu")
+    before = kg.gather_sum.launches
+    card, host, metrics = _paired_steps(
+        monkeypatch, make_train_step(tt.loss, SMOKE, accum=accum, **TRAIN_SCHEDULE), accum)
+    assert kg.gather_sum.launches == before
+    for got, want in metrics:
+        assert got["loss"].is_cuda
+        for k in ("loss", "gnorm", "lr"):
+            torch.testing.assert_close(got[k].cpu(), want[k], atol=1e-9, rtol=1e-6)
+    _assert_card_state_matches(card, host)
+
+
+def test_loss_sharded_at_world_one_is_the_loss(nccl_mesh):
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.train.step import value_and_grad
+
+    state, tt = _smoke_state("cuda")
+    params = state.params
+    batch = _smoke_batch(0, "cuda")
+    loss, grads = value_and_grad(tt.loss, params, batch, SMOKE)
+    for scatter in (False, True):
+        got, got_grads = value_and_grad(tt.loss_sharded, params, batch, SMOKE, mesh=nccl_mesh,
+                                        scatter=scatter)
+        torch.testing.assert_close(got, loss, atol=1e-5, rtol=1e-5)
+        for a, b in zip(tree_leaves(got_grads), tree_leaves(grads)):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_compressed_dp_step_on_the_card_tracks_the_plain_step(nccl_mesh, monkeypatch):
+    """The compressed DP step over one NCCL rank, at a learning rate of 1e-2
+    and fed the CPU's gradients, equals the plain step on the CPU given the
+    same gradients int8-rounded with error feedback."""
+    from repro_torch.train import make_compressed_dp_step
+
+    _, tt = _smoke_state("cpu")
+    card, host, metrics = _paired_steps(
+        monkeypatch, make_compressed_dp_step(tt.loss, SMOKE, nccl_mesh, "data",
+                                             **TRAIN_SCHEDULE), compressed=True)
+    for got, want in metrics:
+        for k in ("loss", "gnorm"):
+            torch.testing.assert_close(got[k].cpu(), want[k], atol=1e-9, rtol=1e-6)
+    _assert_card_state_matches(card, host)

@@ -35,7 +35,12 @@ def test_port_files_found():
                    "persist/manager.py", "persist/wal.py", "loadgen/scenario.py",
                    "loadgen/arrivals.py", "loadgen/clock.py", "analysis/__init__.py",
                    "analysis/__main__.py", "analysis/demand.py", "analysis/diagnostics.py",
-                   "analysis/linter.py", "analysis/passes.py", "analysis/rewrites.py"):
+                   "analysis/linter.py", "analysis/passes.py", "analysis/rewrites.py",
+                   "distributed/mesh.py", "distributed/collectives.py",
+                   "distributed/context.py", "core/distributed.py", "optim/adamw.py",
+                   "optim/schedule.py", "optim/grad_compress.py", "train/state.py",
+                   "train/step.py", "train/checkpoint.py", "train/fault_tolerance.py",
+                   "launch/train.py"):
         assert f"repro_torch/{module}" in names
 
 
@@ -58,6 +63,8 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.core.versioned_store, repro_torch.obs.profile\n"
         "import repro_torch.obs.metrics, repro_torch.obs.explain, repro_torch.obs.stats\n"
         "import repro_torch.persist, repro_torch.loadgen, repro_torch.analysis.__main__\n"
+        "import repro_torch.distributed, repro_torch.core.distributed, repro_torch.optim\n"
+        "import repro_torch.train, repro_torch.launch.train\n"
         "print('ok')\n"
     )
     out = subprocess.run(
