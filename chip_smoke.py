@@ -114,7 +114,23 @@ Phases, one output line each:
    with the reference's npz keys, the last restored onto the card;
 13. launch_datalog — ``python -m repro_torch.launch.train --arch
    datalog:tc --graph-n 1000`` as a subprocess, its sizes and iterations
-   equal to ``Engine.run``'s in this process.
+   equal to ``Engine.run``'s in this process;
+14. lm_smoke — the five transformer LMs (``repro_torch.models.transformer``)
+   at SMOKE in float32, weights drawn once on the CPU and copied to the
+   card: prefill, 8 decode steps, ``forward`` and greedy ``generate`` on the
+   card against the CPU (within 1e-4 of the logits' largest value, tokens
+   equal), and decode against ``forward``;
+15. lm_serve_full — qwen2-7b (GQA, qkv bias, dense SwiGLU) and
+   deepseek-v2-lite-16b (MLA with absorbed decode, MoE top-6 of 64 with 2
+   shared experts, a dense first layer) at FULL width in bf16, one line each:
+   8 requests through ``BatchedServer`` (batch 4, 16 new tokens), prefill
+   and decode-step times (CUDA events), the decode step's device profile
+   (busy share, device events and host synchronisations per step), its
+   routed experts per MoE layer and its bound, peak memory, and 8 decode
+   steps against ``forward`` at the same positions (within 5e-2 of the
+   logits' largest value);
+16. launch_serve — ``python -m repro_torch.launch.serve --arch qwen1.5-0.5b
+   --requests 8`` as a subprocess, on the card by default.
 
 Then a ``kernels`` JSON line (``launches``: each kernel's count on its main
 path — TC and SG at G10K for ``bitmm`` and ``bitmm_fused_delta``, phases 8
@@ -123,7 +139,9 @@ phase 6b; ``durable_launches``: the durability path's own work in phase
 6c — writes through a durable server, restores with their replay, writes
 on restored instances, checkpointed and resumed engine runs — and not the
 from-scratch references or the live instances built to compare with;
-``sharded_launches``: phase 10's three sharded fixpoints), the card's name
+``sharded_launches``: phase 10's three sharded fixpoints; ``lm_launches``:
+phases 14-15, which must be 0, as no kernel of the repo lies on the LM
+path), the card's name
 and power limit, and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero; so does a machine without CUDA.
 Every instance is admitted through the static analyzer's rewrites
@@ -184,6 +202,16 @@ SERVE_DRED = dict(n=1024, p=0.003, seed=0)
 # READ_ROUNDS) until READ_OVERLAP reads have overlapped the writer
 READ_QUERIES, READ_BATCH, READ_IDLE = 64, 8, 512
 READ_OVERLAP, READ_ROUNDS = 400, 15                  # odd: the last round inserts
+# phases 14-16, the transformer LMs
+LM_TOL = 1e-4          # SMOKE, float32: card against CPU, of the logits' largest |value|
+LM_FULL_TOL = 5e-2     # FULL, bfloat16: decode against forward, of the logits' largest |value|
+LM_FULL_ARCHS = ("qwen2-7b", "deepseek-v2-lite-16b")
+LM_REQUESTS, LM_BATCH, LM_MAX_NEW = 8, 4, 16     # launch.serve's defaults
+LM_PROMPT, LM_DECODE_STEPS = 16, 8
+# (prompt tokens, batch) of the long-context prefills at FULL, each followed by
+# decode steps over its cache; 8192 takes the chunked (online-softmax) attention
+LM_CONTEXTS = ((2048, 4), (8192, 4))
+BF16_OPS_PER_S = 989e12                           # H100 SXM dense bf16 tensor cores
 TXN_PROG = """
 tc(x,y) :- arc(x,y).
 tc(x,y) :- rail(x,y).
@@ -267,9 +295,18 @@ def percentile(values, q: float) -> float:
 
 def device_busy_share(fn, calls: int):
     """Share of a window of ``calls`` calls in which the card ran kernels or
-    copies, as ``torch.profiler`` records them (one stream, so the device
-    times add up); None where the profiler recorded no device time.  The
-    profiler's own cost lengthens the window, so this is a lower bound."""
+    copies (``device_profile``'s ``busy_share``)."""
+    return device_profile(fn, calls)["busy_share"]
+
+
+def device_profile(fn, calls: int) -> dict:
+    """``torch.profiler`` over ``calls`` calls: the share of the window in
+    which the card ran kernels or copies (one stream, so the device times
+    add up; the profiler's own cost lengthens the window, so this is a lower
+    bound; None where it recorded no device time), and per call the device
+    events (kernels, copies, sets), the host synchronisations
+    (``cuda*Synchronize``) and the six device events and host operations
+    that took most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -281,9 +318,23 @@ def device_busy_share(fn, calls: int):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
-    return busy_us / wall_us if busy_us > 0 else None
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in device)
+    syncs = sum(e.count for e in events
+                if e.device_type != DeviceType.CUDA and "Synchronize" in e.key)
+    host = [e for e in events if e.device_type != DeviceType.CUDA]
+
+    def top(rows, attr):
+        rows = sorted(rows, key=lambda e: getattr(e, attr), reverse=True)[:6]
+        return {e.key[:80]: [getattr(e, attr) / calls / 1e3, e.count / calls] for e in rows}
+
+    return {"busy_share": busy_us / wall_us if busy_us > 0 else None,
+            "profiled_ms_per_call": wall_us / calls / 1e3,
+            "device_events_per_call": sum(e.count for e in device) / calls,
+            "host_syncs_per_call": syncs / calls,
+            "top_device_ms_and_count_per_call": top(device, "self_device_time_total"),
+            "top_host_ms_and_count_per_call": top(host, "self_cpu_time_total")}
 
 
 def gather_sum_phase(dev, model, bulk) -> dict:
@@ -1767,6 +1818,284 @@ def launch_datalog_phase(dev, work) -> None:
          iterations=iters)
 
 
+def rel_err(got, want) -> float:
+    """max |got − want| over max |want|, in float32 on the host."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def lm_smoke_phase(dev, smi) -> None:
+    """Phase 14: the five archs at SMOKE in float32, the same weights (drawn
+    on the CPU) on the card and on the CPU: prefill and LM_DECODE_STEPS decode
+    steps (each also against ``forward`` at its position), ``forward`` and
+    greedy ``generate``."""
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.serve import generate
+
+    errs = {}
+    for arch in registry.LM_ARCHS:
+        cfg = registry.arch_config(arch, smoke=True)
+        host = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        toks = np.random.default_rng(1).integers(
+            0, cfg.vocab, (2, 4 + LM_DECODE_STEPS)).astype(np.int32)
+        runs = {}
+        for side, params in (("cpu", host), ("card", tree_map(lambda t: t.to(dev), host))):
+            t = torch.as_tensor(toks, device=params["embed"].device)
+            logits, cache = tf.prefill(params, t[:, :4], cfg, 4 + LM_DECODE_STEPS)
+            steps = [logits]
+            for pos in range(4, 4 + LM_DECODE_STEPS):
+                logits, cache = tf.decode_step(params, cache, t[:, pos], pos, cfg)
+                steps.append(logits)
+            full, aux = tf.forward(params, t, cfg)
+            greedy = generate(params, toks[:, :4], cfg, steps=LM_DECODE_STEPS, temperature=0.0)
+            runs[side] = (torch.stack(steps, 1), full, aux, greedy.cpu())
+        (h_steps, h_full, h_aux, h_tok), (c_steps, c_full, c_aux, c_tok) = runs["cpu"], runs["card"]
+        check(c_full.device.type == "cuda", f"{arch} did not run on the card")
+        errs[arch] = {"prefill_and_decode": rel_err(c_steps, h_steps),
+                      "forward": rel_err(c_full, h_full),
+                      "aux": abs(float(c_aux) - float(h_aux))}
+        check(max(errs[arch]["prefill_and_decode"], errs[arch]["forward"],
+                  errs[arch]["aux"]) <= LM_TOL,
+              f"{arch} on the card differs from the CPU: {errs[arch]}")
+        check(torch.equal(c_tok, h_tok), f"{arch}: greedy tokens differ between card and CPU")
+        check(rel_err(c_steps, c_full[:, 3:]) <= LM_TOL,
+              f"{arch}: decode differs from forward on the card")
+    emit("lm_smoke", tol=LM_TOL, decode_steps=LM_DECODE_STEPS, card_against_cpu=errs, card=smi)
+
+
+def lm_bound(cfg, params, batch: int, new: int, filled: int, routed: list[int]) -> dict:
+    """Least ms of a call that runs ``new`` tokens of each of ``batch`` rows
+    after ``filled`` cache entries (a decode step: ``new`` 1; a prefill:
+    ``filled`` 0), the larger of: the bytes it must move — each weight it
+    uses read once (of the embedding table only the tokens' rows unless the
+    unembedding is tied to it; of a MoE layer only the ``routed`` experts),
+    the cache's filled entries read and the new ones written — at the memory
+    rate; and its products' operations (2 per weight and token, and
+    attention over the causal (query, key) pairs: decode in MLA's absorbed
+    form, prefill in its expanded one) at the bf16 rate."""
+    from torch.utils._pytree import tree_leaves
+
+    elem = torch.finfo(cfg.params_dtype).bits // 8
+    d, h, n = cfg.d_model, cfg.n_heads, cfg.n_layers
+    tokens = batch * new
+    unread = 0 if cfg.tie_embeddings else max(cfg.vocab - tokens, 0) * d
+    expert = 3 * d * cfg.d_ff_expert
+    unread += sum(cfg.n_experts - r for r in routed) * expert
+    if cfg.attention == "mla":
+        per_entry = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+        if new == 1:
+            pair_ops = 2 * h * (2 * cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+        else:
+            pair_ops = 2 * h * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim + cfg.v_head_dim)
+    else:
+        per_entry = 2 * cfg.n_kv_heads * cfg.head_dim
+        pair_ops = 2 * h * 2 * cfg.head_dim
+    pairs = new * filled + new * (new + 1) // 2        # causal (query, key) pairs per row
+    cache_bytes = n * batch * (filled + new) * per_entry * elem
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params)) - unread * elem
+    used = cfg.active_param_count() - (0 if cfg.tie_embeddings else cfg.vocab * d)
+    ops = 2.0 * tokens * used + batch * n * pairs * pair_ops
+    bytes_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_bytes": weight_bytes + cache_bytes, "bound_operations": ops}
+
+
+def routed_in(fn) -> list[int]:
+    """Distinct experts each MoE layer routed to in one call of ``fn``, as
+    ``moe_apply`` records them (``layers.ROUTED``)."""
+    from repro_torch.models.transformer import layers as tl
+
+    tl.ROUTED = routed = []
+    try:
+        fn()
+    finally:
+        tl.ROUTED = None
+    return routed
+
+
+def lm_context_phase(dev, cfg, params, rng, prompt_len: int, batch: int) -> dict:
+    """At a ``prompt_len``-token prompt and ``batch`` rows: the prefill's and
+    the decode step's (over the prefilled cache) ms, bounds and peak memory,
+    the step's busy share and device events; the logits must be finite."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.transformer import layers as tl
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len + 1)),
+                           dtype=torch.int32, device=dev)
+    prompt, max_len = toks[:, :prompt_len], prompt_len + 1
+    prefill_ms = time_ms(lambda: tf.prefill(params, prompt, cfg, max_len), reps=2, warm=1)
+    out = {}
+    prefill_routed = routed_in(lambda: out.update(zip(
+        ("logits", "cache"), tf.prefill(params, prompt, cfg, max_len))))
+    cache = out["cache"]
+
+    def step():
+        return tf.decode_step(params, cache, toks[:, prompt_len], prompt_len, cfg)
+
+    decode_ms = time_ms(step, reps=5, warm=1)
+    profile = device_profile(step, calls=2)
+    decode_routed = routed_in(step)
+    logits, _ = step()
+    check(bool(torch.isfinite(out["logits"]).all() and torch.isfinite(logits).all()),
+          f"{cfg.name}: non-finite logits at a {prompt_len}-token prompt")
+    got = {
+        "prompt": prompt_len, "batch": batch,
+        "attention": "chunked" if prompt_len >= tl.CHUNK_THRESHOLD else "sdpa",
+        "prefill_ms": prefill_ms,
+        "prefill_bound": lm_bound(cfg, params, batch, prompt_len, 0, prefill_routed),
+        "prefill_routed_experts": prefill_routed,
+        "decode_ms": decode_ms,
+        "decode_bound": lm_bound(cfg, params, batch, 1, prompt_len, decode_routed),
+        "decode_busy_share": profile["busy_share"],
+        "decode_device_events": profile["device_events_per_call"],
+        "decode_host_syncs": profile["host_syncs_per_call"],
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+    }
+    del out, cache, logits
+    return got
+
+
+def chunked_against_plain(dev, cfg, params, rng, prompt_len: int) -> dict:
+    """One row of a ``prompt_len``-token prefill (≥ CHUNK_THRESHOLD) through
+    the chunked attention and, with the threshold lifted, through ``_sdpa``'s
+    full score matrix: the last logits must agree within LM_FULL_TOL."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.transformer import layers as tl
+
+    check(prompt_len >= tl.CHUNK_THRESHOLD, f"{prompt_len} tokens do not reach the chunked path")
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (1, prompt_len)), dtype=torch.int32,
+                             device=dev)
+    chunked, _ = tf.prefill(params, prompt, cfg, prompt_len)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    threshold, tl.CHUNK_THRESHOLD = tl.CHUNK_THRESHOLD, 1 << 62
+    try:
+        plain, _ = tf.prefill(params, prompt, cfg, prompt_len)
+    finally:
+        tl.CHUNK_THRESHOLD = threshold
+    err = rel_err(chunked, plain)
+    check(err <= LM_FULL_TOL, f"{cfg.name}: chunked prefill against _sdpa {err} > {LM_FULL_TOL}")
+    return {"prompt": prompt_len, "batch": 1, "err": err, "tol": LM_FULL_TOL,
+            "argmax_equal": bool(torch.equal(chunked.argmax(-1), plain.argmax(-1))),
+            "plain_peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def lm_serve_full_phase(dev, arch, smi) -> None:
+    """Phase 15: ``arch`` at FULL width in bf16: LM_REQUESTS requests (drawn
+    as ``launch.serve`` draws them) through ``BatchedServer``, a launcher
+    smoke figure; at batch LM_BATCH and a LM_PROMPT-token prompt the prefill
+    and decode-step times, the decode step's device profile, its routed
+    experts and bound; decode steps against ``forward`` at the same
+    positions, and the same with the cache position planted one off, to
+    show what the tolerance separates; then the long contexts
+    (LM_CONTEXTS) and the chunked attention against the plain one."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.serve import BatchedServer, generate
+
+    cfg = registry.arch_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(1, 16))) for _ in range(LM_REQUESTS)]
+    generate(params, prompts[0][None], cfg, steps=2)          # uncounted: cuBLAS set-up
+    server = BatchedServer(params, cfg, batch=LM_BATCH, max_len=256)
+    for prompt in prompts:
+        server.submit(prompt, LM_MAX_NEW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = server.run(seed=0)
+    serve_seconds = time.perf_counter() - t0
+    generated = sum(len(v) for v in done.values())
+    check(sorted(done) == list(range(LM_REQUESTS))
+          and all(len(v) == LM_MAX_NEW and 0 <= min(v) and max(v) < cfg.vocab
+                  for v in done.values()), f"{arch}: the server returned {done}")
+
+    max_len = LM_PROMPT + LM_DECODE_STEPS
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (LM_BATCH, max_len)), dtype=torch.int32,
+                           device=dev)
+    prompt = toks[:, :LM_PROMPT]
+    prefill_ms = time_ms(lambda: tf.prefill(params, prompt, cfg, max_len), reps=5, warm=1)
+    _, cache = tf.prefill(params, prompt, cfg, max_len)
+
+    def step():
+        return tf.decode_step(params, cache, toks[:, LM_PROMPT], LM_PROMPT, cfg)
+
+    decode_ms = time_ms(step, reps=10, warm=2)
+    profile = device_profile(step, calls=4)
+    routed = routed_in(step)                 # distinct experts per MoE layer in one step
+    bound = lm_bound(cfg, params, LM_BATCH, 1, LM_PROMPT, routed)
+    short_peak = torch.cuda.max_memory_allocated()
+
+    def decoded(offset: int):
+        """Prefill's logits, then each decode step's, the cache position of
+        every step ``offset`` from the right one."""
+        logits, cache = tf.prefill(params, prompt, cfg, max_len + 1)
+        got = [logits]
+        for pos in range(LM_PROMPT, max_len):
+            logits, cache = tf.decode_step(params, cache, toks[:, pos], pos + offset, cfg)
+            got.append(logits)
+        return torch.stack(got, 1)
+
+    full, _ = tf.forward(params, toks, cfg)
+    want = full[:, LM_PROMPT - 1:]
+    got = decoded(0)
+    err = rel_err(got, want)
+    check(err <= LM_FULL_TOL, f"{arch}: decode against forward {err} > {LM_FULL_TOL}")
+    planted = {f"cache_len{o:+d}": rel_err(decoded(o), want) for o in (1, -1)}
+    del cache, full
+    contexts = [lm_context_phase(dev, cfg, params, rng, s, b) for s, b in LM_CONTEXTS]
+    chunked = chunked_against_plain(dev, cfg, params, rng, LM_CONTEXTS[-1][0])
+    emit("lm_serve_full", arch=arch, dtype=cfg.dtype, card=smi,
+         params=sum(t.numel() for t in leaves), param_count=cfg.param_count(),
+         param_bytes=sum(t.numel() * t.element_size() for t in leaves),
+         init_seconds=init_seconds, requests=len(done), generated_tokens=generated,
+         serve_seconds=serve_seconds, tok_per_s=generated / serve_seconds,
+         prefill_ms=prefill_ms, prefill_shape=list(prompt.shape), decode_ms=decode_ms,
+         decode_batch=LM_BATCH, decode_filled=LM_PROMPT, decode_profile=profile, **bound,
+         routed_experts=routed, moe_layers_per_step=len(routed),
+         decode_against_forward=err, decode_against_forward_tol=LM_FULL_TOL,
+         argmax_agreement=float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+         planted_faults=planted,
+         planted_faults_separated=all(e > LM_FULL_TOL for e in planted.values()),
+         peak_memory_bytes=short_peak, contexts=contexts, chunked_against_plain=chunked)
+    del params, got, want, leaves
+    torch.cuda.empty_cache()
+
+
+def launch_serve_phase(kind, smi) -> None:
+    """Phase 16: ``python -m repro_torch.launch.serve --arch qwen1.5-0.5b
+    --requests 8`` as a subprocess, on the card by default."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen1.5-0.5b",
+         "--requests", str(LM_REQUESTS)],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+    )
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"launch.serve exited {proc.returncode}: {proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout)
+    check(got["requests"] == LM_REQUESTS and got["generated_tokens"] == LM_REQUESTS * LM_MAX_NEW
+          and got["device"] == kind, f"launch.serve printed {got}")
+    emit("launch_serve", process_seconds=seconds, launcher=got, card=smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no GPU to drive",
@@ -2083,6 +2412,17 @@ def main() -> int:
         launch_datalog_phase(dev, work)
     torch.cuda.empty_cache()
 
+    # -- 14-16. the transformer LMs: no kernel of the repo lies on their path ----------
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    lm_smoke_phase(dev, smi)
+    for arch in LM_FULL_ARCHS:
+        lm_serve_full_phase(dev, arch, smi)
+    launch_serve_phase(kind, smi)
+    lm_launches = {name: c.launches for name, c in counters.items()}
+    check(not any(lm_launches.values()), f"the LM path launched {lm_launches}")
+
     # -- 6c. durability: snapshots, the WAL, restore, engine checkpoints -------------
     # last, so that its files and host buffers cannot slow phases 7-9; counted
     # apart too: the durability path's own launches, restored matrices included
@@ -2111,6 +2451,7 @@ def main() -> int:
             "serve_launches": serve_launches[name],
             "durable_launches": DURABLE_LAUNCHES[name],
             "sharded_launches": sharded_launches[name],
+            "lm_launches": lm_launches[name],
             "max_abs_err": err[name],
             "ms": timed[name]["ms"],
             "plain_ms": timed[name]["plain_ms"],

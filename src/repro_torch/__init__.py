@@ -1,6 +1,6 @@
 """RecStep on PyTorch: the Datalog engine, its serving layer and sharded
-fixpoints, and the two-tower model's serving and training, ported from
-``repro`` (JAX) to torch.
+fixpoints, the two-tower model's serving and training, and the transformer
+LMs' serving, ported from ``repro`` (JAX) to torch.
 
 Entry points::
 
@@ -10,7 +10,11 @@ Entry points::
     from repro_torch.models.recsys import TwoTower
     scores = TwoTower(cfg).serve_scores(batch)
 
-Both run on CUDA unless they are given ``device="cpu"``.  PBME products and
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.serve import generate
+    tokens = generate(tf.init_params(cfg), prompt, cfg, steps=16)
+
+All run on CUDA unless they are given ``device="cpu"``.  PBME products and
 embedding bags run the hand-written kernels in ``csrc/`` (built with
 ``nvcc`` at first use) on a CUDA device and their plain PyTorch versions
 on the CPU.

@@ -1,9 +1,10 @@
-"""Seeded synthetic data: graphs, program-analysis facts and the recsys
-click stream (numpy only).  Deterministic given a seed."""
+"""Seeded synthetic data: graphs, program-analysis facts, the LM token stream
+and the recsys click stream (numpy only).  Deterministic given a seed."""
 
 from repro_torch.data.graphs import gnp_graph, rmat_graph
 from repro_torch.data.program_facts import andersen_facts, csda_facts, cspa_facts
 from repro_torch.data.recsys_stream import RecsysStream
+from repro_torch.data.tokens import TokenStream
 
 __all__ = [
     "gnp_graph",
@@ -12,4 +13,5 @@ __all__ = [
     "csda_facts",
     "cspa_facts",
     "RecsysStream",
+    "TokenStream",
 ]

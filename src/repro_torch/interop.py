@@ -12,6 +12,9 @@ reinterpreted as ``int32``.
 :func:`train_state_from_reference` and :func:`train_state_to_reference`
 carry a train state (params, AdamW's ``mu``, ``nu`` and ``count``, the
 step) across in the reference's tree layout, numpy on the reference's side.
+:func:`transformer_params_from_reference` carries the reference's transformer
+``init_params`` pytree (numpy leaves, bfloat16 ones included) into the port's
+parameter dict, stacked ``layers`` axis and ``prefix`` list as they are.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from torch.utils._pytree import tree_map
 
 from repro_torch.core.relation import relation_from_blocks
 from repro_torch.models.recsys import RecsysConfig, TwoTower
+from repro_torch.models.transformer import TransformerConfig
+from repro_torch.models.transformer import init_params as transformer_init
 from repro_torch.train.state import TrainState
 
 
@@ -102,3 +107,52 @@ def train_state_to_reference(state: TrainState) -> tuple:
         return t.detach().cpu().numpy().copy()
 
     return tree_map(conv, state.params), tree_map(conv, state.opt), conv(state.step)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array → a tensor on ``device``; numpy's bfloat16 (``ml_dtypes``,
+    as JAX hands it out) crosses bit for bit through a ``uint16`` view."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.view(np.uint16), device=device).view(torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def transformer_params_from_reference(params, cfg: TransformerConfig, device) -> dict:
+    """The reference's transformer ``init_params(key, cfg)`` pytree, leaves as
+    numpy (``jax.tree.map(np.asarray, params)``) → the port's parameter dict on
+    ``device``, with the same keys, shapes and dtypes."""
+    out = tree_map(lambda a: _tensor(a, device), params)
+    _same_tree(out, transformer_init(cfg, torch.Generator(), device="meta"), "params")
+    return out
+
+
+def _same_tree(got, want, path: str) -> None:
+    """Raise unless ``got`` has ``want``'s keys, list lengths, shapes and dtypes."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            raise ValueError(f"transformer_params_from_reference: {path} has "
+                             f"{sorted(got) if isinstance(got, dict) else type(got).__name__}, "
+                             f"the config makes {sorted(want)}")
+        for key in want:
+            _same_tree(got[key], want[key], f"{path}.{key}")
+    elif isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise ValueError(f"transformer_params_from_reference: {path} is not a list of "
+                             f"{len(want)} layers")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_tree(g, w, f"{path}[{i}]")
+    elif got.shape != want.shape or got.dtype != want.dtype:
+        raise ValueError(f"transformer_params_from_reference: {path} is {got.dtype}"
+                         f"{list(got.shape)}, the config makes {want.dtype}{list(want.shape)}")
+
+
+def transformer_params_to_reference(params) -> dict:
+    """The inverse, as a tree of numpy arrays; a bfloat16 leaf comes back as
+    float32 holding the same values (numpy has no bfloat16 of its own)."""
+
+    def conv(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+    return tree_map(conv, params)

@@ -4,10 +4,11 @@
 (``configs/datalog_workloads.py``) through ``Engine.run`` on ``--device``
 (CUDA unless ``--device cpu``) over a ``gnp_graph(--graph-n, p=--graph-p,
 seed=--seed)`` EDB, with engine checkpoints in ``--ckpt-dir`` every
-``--ckpt-every`` iterations, and prints what it ran as JSON.  The language
-models of the reference's other ``--arch`` values, and their options
-(``--smoke``, ``--steps``, ``--batch``, ``--seq``, ``--lr``), wait for the
-transformer (ROADMAP A11): the launcher exits non-zero for them.
+``--ckpt-every`` iterations, and prints what it ran as JSON.  Training the
+language models of the reference's other ``--arch`` values, and their
+options (``--smoke``, ``--steps``, ``--batch``, ``--seq``, ``--lr``), wait for
+the LM training branch (ROADMAP A11, ``train_lm``): the launcher exits
+non-zero for them.  Serving them is ``python -m repro_torch.launch.serve``.
 
 On a cluster each host runs this same entry point with ``--coordinator
 host:port --num-processes N --process-id i``, which initialise
@@ -41,8 +42,10 @@ def _maybe_distributed(args):
 
 def train_lm(args):
     sys.exit(
-        f"repro_torch.launch.train: --arch {args.arch} needs the transformer models, "
-        "which the port does not have yet (ROADMAP A11); only --arch datalog:<workload> runs"
+        f"repro_torch.launch.train: --arch {args.arch} needs LM training, the launcher's "
+        "train_lm branch, which the port does not have yet (ROADMAP A11, LM training); "
+        "only --arch datalog:<workload> runs (python -m repro_torch.launch.serve serves "
+        "the LMs)"
     )
 
 
@@ -105,7 +108,7 @@ def main(argv=None):
     ap = build_parser()
     args, rest = ap.parse_known_args(argv)
     if not args.arch.startswith("datalog:"):
-        train_lm(args)          # its options (--steps, --batch, ...) come with A11
+        train_lm(args)          # its options (--steps, --batch, ...) come with LM training
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     _maybe_distributed(args)

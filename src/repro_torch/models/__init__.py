@@ -1,3 +1,4 @@
-"""Models on torch.  So far the two-tower retrieval model (``models.recsys``):
-serving, training and its vocab-sharded form; the rest of the reference's
-zoo is later work (ROADMAP A11)."""
+"""Models on torch: the two-tower retrieval model (``models.recsys``:
+serving, training and its vocab-sharded form) and the transformer LMs
+(``models.transformer``: serving; LM training and the GNNs are later work,
+ROADMAP A11)."""

@@ -15,6 +15,7 @@ import glob
 import importlib
 import json
 import os
+import pkgutil
 import subprocess
 import sys
 from pathlib import Path
@@ -429,10 +430,13 @@ def test_cli_runs_as_a_module_on_the_host():
 
 #: reference names whose modules are not ported yet (ROADMAP.md item A11), and
 #: the distributed layer's JAX-only names: ``shard_map`` (each rank is a process
-#: that runs its shard's code) and ``collective_bytes`` (it parses XLA's HLO)
+#: that runs its shard's code) and ``collective_bytes`` (it parses XLA's HLO);
+#: for ``configs``, which has no ``__all__``, its modules: the GNN configs wait
+#: for A11
 UNPORTED = {
     "relational": {"NeighborSampler", "build_csr"},
-    "data": {"TokenStream", "grid_mesh_graph", "batched_molecules"},
+    "data": {"grid_mesh_graph", "batched_molecules"},
+    "configs": {"gcn_cora", "graphcast", "meshgraphnet", "schnet"},
     "distributed": {"param_sharding", "batch_sharding", "lm_param_spec",
                     "shard_map", "collective_bytes"},
 }
@@ -440,10 +444,17 @@ UNPORTED = {
 
 @pytest.mark.parametrize("package", ["core", "obs", "relational", "data", "analysis",
                                      "serve_datalog", "persist", "loadgen", "optim", "train",
-                                     "distributed", "models.recsys"])
+                                     "distributed", "models.recsys", "models.transformer",
+                                     "configs"])
 def test_exports_cover_the_reference(package):
     ref = importlib.import_module(f"repro.{package}")
     port = importlib.import_module(f"repro_torch.{package}")
+    if not hasattr(ref, "__all__"):             # a namespace package: compare modules
+        ref_mods = {m.name for m in pkgutil.iter_modules(ref.__path__)}
+        port_mods = {m.name for m in pkgutil.iter_modules(port.__path__)}
+        want = ref_mods - UNPORTED.get(package, set())
+        assert want <= port_mods, sorted(want - port_mods)
+        return
     want = set(ref.__all__) - UNPORTED.get(package, set())
     assert want <= set(port.__all__), sorted(want - set(port.__all__))
     for name in port.__all__:

@@ -1,6 +1,6 @@
 """The port on the card: CUDA kernels against their plain versions, the
 engine on CUDA against the engine on the CPU bit for bit, and the two-tower
-model on CUDA against the same model on the CPU.
+model and the transformer LMs on CUDA against the same models on the CPU.
 
 Imports neither JAX nor ``repro``, so it runs on a machine that has only
 PyTorch with CUDA::
@@ -10,10 +10,19 @@ PyTorch with CUDA::
 Every test skips itself where ``torch.cuda.is_available()`` is false.
 """
 
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
+from torch.utils._pytree import tree_map
 
+from repro_torch.configs import registry as lm_registry
 from repro_torch.configs.datalog_workloads import ALL
 from repro_torch.core import Engine, EngineConfig
 from repro_torch.data.graphs import random_graph
@@ -24,8 +33,10 @@ from repro_torch.kernels import gather_sum as kg
 from repro_torch.kernels.ref import (
     bitmm_fused_delta_plain, bitmm_plain, gather_sum_plain, pack_bits,
 )
+from repro_torch.models import transformer as tf
 from repro_torch.models.recsys import TwoTower
 from repro_torch.serve_datalog import DatalogServer, MaterializedInstance, PlanCache
+from repro_torch.train.serve import generate
 
 pytestmark = pytest.mark.cuda
 
@@ -594,3 +605,66 @@ def test_compressed_dp_step_on_the_card_tracks_the_plain_step(nccl_mesh, monkeyp
         for k in ("loss", "gnorm"):
             torch.testing.assert_close(got[k].cpu(), want[k], atol=1e-9, rtol=1e-6)
     _assert_card_state_matches(card, host)
+
+
+# -- the transformer LMs: SMOKE weights drawn on the CPU, on both devices ------------
+
+LM_TOL, LM_BF16_TOL = 1e-4, 2e-2      # of each output's largest |value|
+
+
+def _lm_runs(params, cfg, toks):
+    """forward's logits, prefill's plus decode's logits, the cache and the
+    greedy tokens, all on the host."""
+    t = torch.as_tensor(toks, device=params["embed"].device)
+    full, _ = tf.forward(params, t, cfg)
+    logits, cache = tf.prefill(params, t[:, :4], cfg, toks.shape[1])
+    steps = [logits]
+    for pos in range(4, toks.shape[1]):
+        logits, cache = tf.decode_step(params, cache, t[:, pos], pos, cfg)
+        steps.append(logits)
+    greedy = generate(params, toks[:, :4], cfg, steps=8, temperature=0.0)
+    return (full.cpu(), torch.stack(steps, 1).cpu(), {k: v.cpu() for k, v in cache.items()},
+            greedy.cpu())
+
+
+def _rel(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("arch", list(lm_registry.LM_ARCHS))
+def test_lm_on_the_card_matches_cpu(cuda, arch):
+    cfg = lm_registry.arch_config(arch, smoke=True)
+    host = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 12)).astype(np.int32)
+    h_full, h_steps, h_cache, h_tok = _lm_runs(host, cfg, toks)
+    c_full, c_steps, c_cache, c_tok = _lm_runs(tree_map(lambda t: t.to(cuda), host), cfg, toks)
+    assert _rel(c_full, h_full) <= LM_TOL and _rel(c_steps, h_steps) <= LM_TOL
+    for key in h_cache:
+        assert _rel(c_cache[key], h_cache[key]) <= LM_TOL, key
+    assert torch.equal(c_tok, h_tok)
+    assert _rel(c_steps, c_full[:, 3:]) <= LM_TOL       # decode against forward
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-v2-lite-16b"], ids=["gqa", "mla"])
+def test_lm_bfloat16_on_the_card_matches_cpu(cuda, arch):
+    cfg = dataclasses.replace(lm_registry.arch_config(arch, smoke=True), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    host = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 12)).astype(np.int32)
+    h_full, h_steps, _, _ = _lm_runs(host, cfg, toks)
+    c_full, c_steps, _, _ = _lm_runs(tree_map(lambda t: t.to(cuda), host), cfg, toks)
+    assert c_full.dtype == torch.bfloat16
+    assert _rel(c_full, h_full) <= LM_BF16_TOL and _rel(c_steps, h_steps) <= LM_BF16_TOL
+
+
+def test_launch_serve_runs_on_the_card_by_default(cuda):
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen1.5-0.5b", "--smoke",
+         "--requests", "3", "--max-new", "5"],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout)
+    assert got["device"] == torch.cuda.get_device_name(0) and got["generated_tokens"] == 15

@@ -20,6 +20,7 @@ import pytest
 
 import repro.analysis as ref_analysis
 from repro.analysis.__main__ import run as ref_cli
+from repro.core.engine import Engine as RefEngine
 from repro.core.engine import EngineConfig as RefConfig
 from repro.core.parser import parse as ref_parse
 from repro.serve_datalog import DatalogServer as RefServer
@@ -39,7 +40,7 @@ from repro_torch.analysis.__main__ import run as cli
 from repro_torch.analysis.demand import magic_name, seed_name
 from repro_torch.analysis.rewrites import RewriteConfig
 from repro_torch.core.ast import Span
-from repro_torch.core.engine import EngineConfig
+from repro_torch.core.engine import Engine, EngineConfig
 from repro_torch.core.parser import parse
 from repro_torch.serve_datalog import (
     DatalogServer,
@@ -517,3 +518,56 @@ def test_demand_soundness_property(seed):
     problems = verify_rewrite(parse(src), t.program, edb, EngineConfig(**CFG),
                               demand=t, seeds=seeds, device=CPU)
     assert problems == [], (src, pred, pattern, problems)
+
+
+# -- a fault of the reference that the port shares: the magic-set transform
+#    drops an answer on these generator seeds (seed 14708: query q^bb, one row
+#    at (0, 0) in the full fixpoint, none demanded) -------------------------------
+
+KNOWN_REFERENCE_FAULT_SEEDS = (14708, 314113013, 4924312)
+
+
+def _soundness_case(seed):
+    """The property test's program, query, EDB and seed rows at ``seed``, and
+    the transform (equal in both packages)."""
+    rnd = random.Random(seed)
+    src = _random_positive_program(rnd)
+    pred = rnd.choice(["p", "q"])
+    pattern = "".join(rnd.choice("bf") for _ in range(2))
+    t = both_transforms(src, pred, pattern, NO_PROFIT)
+    assert t.ok, (src, pred, pattern)
+    npr = np.random.default_rng(seed)
+    edb = {
+        "e": npr.integers(0, 6, size=(rnd.randint(1, 10), 2)).astype(np.int32),
+        "f": npr.integers(0, 6, size=(rnd.randint(1, 10), 2)).astype(np.int32),
+    }
+    seeds = [tuple(s) for s in npr.integers(0, 8, (5, len(t.bound_cols)))]
+    return src, t, edb, seeds
+
+
+@pytest.mark.parametrize("seed", KNOWN_REFERENCE_FAULT_SEEDS)
+def test_demand_soundness_known_reference_fault(seed):
+    """Parity where the reference is unsound: both packages demand the same
+    answers and report the same missing rows."""
+    src, t, edb, seeds = _soundness_case(seed)
+    spec_edb = {**edb, t.seed_rel: np.asarray(seeds, np.int32)}
+    ref_t = ref_analysis.demand_transform(ref_parse(src), t.query_pred, t.adornment,
+                                          ref_analysis.DemandConfig(**NO_PROFIT))
+    got = Engine(EngineConfig(**CFG), device=CPU).run(t.program, spec_edb)
+    want = RefEngine(RefConfig(**CFG)).run(ref_t.program, spec_edb)
+    assert np.array_equal(np.asarray(got[t.answer_rel]), np.asarray(want[t.answer_rel]))
+    problems = verify_rewrite(parse(src), t.program, edb, EngineConfig(**CFG),
+                              demand=t, seeds=seeds, device=CPU)
+    ref_problems = ref_analysis.verify_rewrite(ref_parse(src), ref_t.program, edb,
+                                               RefConfig(**CFG), demand=ref_t, seeds=seeds)
+    assert problems == ref_problems
+
+
+@pytest.mark.xfail(strict=True, reason="the magic-set transform of both packages drops an "
+                   "answer at these seeds (ROADMAP §C); a repair of both flips this")
+@pytest.mark.parametrize("seed", KNOWN_REFERENCE_FAULT_SEEDS)
+def test_demand_soundness_at_the_known_fault_seeds(seed):
+    src, t, edb, seeds = _soundness_case(seed)
+    problems = verify_rewrite(parse(src), t.program, edb, EngineConfig(**CFG),
+                              demand=t, seeds=seeds, device=CPU)
+    assert problems == [], (src, t.query_pred, t.adornment, problems)

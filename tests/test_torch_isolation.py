@@ -40,7 +40,12 @@ def test_port_files_found():
                    "distributed/context.py", "core/distributed.py", "optim/adamw.py",
                    "optim/schedule.py", "optim/grad_compress.py", "train/state.py",
                    "train/step.py", "train/checkpoint.py", "train/fault_tolerance.py",
-                   "launch/train.py"):
+                   "launch/train.py", "launch/serve.py", "train/serve.py",
+                   "models/transformer/__init__.py", "models/transformer/config.py",
+                   "models/transformer/layers.py", "models/transformer/model.py",
+                   "configs/registry.py", "configs/qwen2_7b.py", "configs/deepseek_v2_lite_16b.py",
+                   "configs/qwen1_5_0_5b.py", "configs/gemma_2b.py",
+                   "configs/granite_moe_1b_a400m.py", "data/tokens.py"):
         assert f"repro_torch/{module}" in names
 
 
@@ -65,6 +70,11 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.persist, repro_torch.loadgen, repro_torch.analysis.__main__\n"
         "import repro_torch.distributed, repro_torch.core.distributed, repro_torch.optim\n"
         "import repro_torch.train, repro_torch.launch.train\n"
+        "import repro_torch.models.transformer, repro_torch.train.serve, repro_torch.launch.serve\n"
+        "import repro_torch.configs.registry, repro_torch.data.tokens\n"
+        "from repro_torch.configs import registry\n"
+        "for arch in registry.LM_ARCHS:\n"
+        "    registry.arch_config(arch)\n"
         "print('ok')\n"
     )
     out = subprocess.run(

@@ -85,10 +85,11 @@ def test_cli_runs_on_cuda_unless_told_otherwise():
     assert rc != 0 and 'device="cpu"' in err
 
 
-def test_language_models_wait_for_a11():
+def test_language_model_training_waits_for_its_roadmap_item():
     rc, out, err = _finish(_port("--arch", "gemma-2b", "--smoke", "--device", "cpu"))
     assert rc != 0 and out == ""
-    assert "ROADMAP A11" in err and "gemma-2b" in err
+    assert "ROADMAP A11, LM training" in err and "gemma-2b" in err
+    assert "repro_torch.launch.serve" in err
 
 
 def test_language_model_options_are_refused_for_datalog(capsys):
