@@ -130,7 +130,29 @@ Phases, one output line each:
    steps against ``forward`` at the same positions (within 5e-2 of the
    logits' largest value);
 16. launch_serve — ``python -m repro_torch.launch.serve --arch qwen1.5-0.5b
-   --requests 8`` as a subprocess, on the card by default.
+   --requests 8`` as a subprocess, on the card by default;
+17. lm_train_smoke / gnn_smoke — the five LMs (``lm_loss(remat=True)``) and
+   the four GNNs (padded graph batches) at SMOKE in float32:
+   ``make_train_step`` on the card against the CPU, three steps, the card's
+   gradients within 1e-5 of each leaf's largest entry, then its update fed
+   the CPU's gradients (params, mu and nu within 1e-6);
+18. lm_train_full — granite-moe-1b-a400m at FULL (bf16 parameters, float32
+   moments, 1.33e9 parameters) on the registry's train_4k sequences of 4096
+   tokens at batch 4 (of its 256: what one card holds), ``lm_loss(remat=True)``:
+   step ms (CUDA events) and tok/s against ``_lm_train_flops`` at the bf16
+   tensor-core rate, the device's busy share and host syncs per step, the
+   experts each layer routed to (the backward's recompute must route alike),
+   peak memory, finite losses and gradient norms;
+19. launch_train — ``python -m repro_torch.launch.train --arch qwen1.5-0.5b
+   --steps 4`` as a subprocess (FULL, batch 8, sequence 256, on the card by
+   default): the reference's JSON, no restart;
+20. gnn_train_full — the four GNNs at FULL width on the largest registry
+   shape one card holds: gcn-cora on ogb_products (2,449,029 nodes,
+   61,859,140 edges), meshgraphnet and graphcast on minibatch_lg (1024 seeds
+   sampled at fanouts 15, 10 by ``NeighborSampler`` on the card from that
+   graph's CSR, flattened to 169,984 nodes and 168,960 edges; the sampler's
+   ms), schnet on molecule: step ms against a bound, peak memory, finite
+   losses.
 
 Then a ``kernels`` JSON line (``launches``: each kernel's count on its main
 path — TC and SG at G10K for ``bitmm`` and ``bitmm_fused_delta``, phases 8
@@ -140,8 +162,8 @@ phase 6b; ``durable_launches``: the durability path's own work in phase
 on restored instances, checkpointed and resumed engine runs — and not the
 from-scratch references or the live instances built to compare with;
 ``sharded_launches``: phase 10's three sharded fixpoints; ``lm_launches``:
-phases 14-15, which must be 0, as no kernel of the repo lies on the LM
-path), the card's name
+phases 14-16 and ``train_launches``: phases 17-20, which must be 0, as no
+kernel of the repo lies on the LM or GNN path), the card's name
 and power limit, and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero; so does a machine without CUDA.
 Every instance is admitted through the static analyzer's rewrites
@@ -212,6 +234,24 @@ LM_PROMPT, LM_DECODE_STEPS = 16, 8
 # decode steps over its cache; 8192 takes the chunked (online-softmax) attention
 LM_CONTEXTS = ((2048, 4), (8192, 4))
 BF16_OPS_PER_S = 989e12                           # H100 SXM dense bf16 tensor cores
+# phases 17-21, training after serving.  TF32 stays off (main), so the GNNs'
+# float32 products run outside the tensor cores and their bounds take
+# FP32_OPS_PER_S; the LM trains in bf16 on the tensor cores (BF16_OPS_PER_S).
+LM_TRAIN_ARCH, LM_TRAIN_SHAPE = "granite-moe-1b-a400m", "train_4k"
+LM_TRAIN_BATCH = 4            # of the registry's 256 sequences of train_4k: what one card holds
+TRAIN_WARM, TRAIN_TIMED = 1, 5
+LAUNCH_TRAIN_ARCH, LAUNCH_TRAIN_STEPS = "qwen1.5-0.5b", 4
+LAUNCH_TRAIN_KEYS = ["arch", "steps", "final_loss", "first_loss", "tokens", "tok_per_s",
+                     "restarts", "straggler_events", "params"]      # the reference's launcher
+# the largest registry shape one card holds per GNN.  At ogb_products (61,859,140
+# edges) one [E, 128] float32 edge tensor of meshgraphnet is 31.7 GB and one
+# processor layer's [E/2, 3 * 512] edge input of graphcast 190 GB, so those two
+# train on minibatch_lg: 1024 seeds sampled at fanouts (15, 10) from the CSR of
+# the ogb_products-sized graph
+GNN_FULL_SHAPES = {"gcn-cora": "ogb_products", "meshgraphnet": "minibatch_lg",
+                   "graphcast": "minibatch_lg", "schnet": "molecule"}
+GNN_SEEDS, GNN_FANOUTS = 1024, (15, 10)
+MOLECULES = (128, 30, 64)     # molecule: 128 graphs of 30 atoms and 64 bonds
 TXN_PROG = """
 tc(x,y) :- arc(x,y).
 tc(x,y) :- rail(x,y).
@@ -1553,9 +1593,11 @@ def recsys_batch(cfg, batch, step, dev, accum=1):
                                device=dev) for k, v in b.items()}
 
 
-def card_against_cpu(dev, host_params, card_step, accum=1, compressed=False) -> dict:
+def card_against_cpu(dev, host_params, cpu_step, card_step, batch_of, what,
+                     compressed=False) -> dict:
     """Three steps at SMOKE and TRAIN_SCHEDULE, of ``card_step`` on the card
-    and of ``make_train_step`` on the CPU, from the same params.  The card's
+    and of ``cpu_step`` (a ``make_train_step``) on the CPU, from the same
+    params and the batches ``batch_of(step, device)``.  The card's
     step is handed the CPU's gradients in place of its own, which are held
     against them (1e-5 of each leaf's largest entry): Adam moves a weight by
     about lr · sign(g), so a gradient entry that cancels to float32 noise
@@ -1566,10 +1608,8 @@ def card_against_cpu(dev, host_params, card_step, accum=1, compressed=False) -> 
     take the int8 rounding with error feedback (its sum over one rank)."""
     from torch.utils._pytree import tree_leaves, tree_map
 
-    from repro_torch.configs.two_tower_retrieval import SMOKE
-    from repro_torch.models.recsys import two_tower as tt
     from repro_torch.optim import compress_state_init, dequantize_int8, quantize_int8
-    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train import init_train_state
     from repro_torch.train import step as train_step_mod
 
     def rel(a, b):
@@ -1599,7 +1639,6 @@ def card_against_cpu(dev, host_params, card_step, accum=1, compressed=False) -> 
                        *(rel(a, b) for a, b in zip(tree_leaves(g), tree_leaves(want))))
         return want_loss.to(dev), tree_map(lambda t: t.to(dev, copy=True), want)
 
-    cpu_step = make_train_step(tt.loss, SMOKE, accum=accum, **TRAIN_SCHEDULE)
     host = init_train_state(tree_map(torch.clone, host_params))
     card = init_train_state(tree_map(lambda t: t.to(dev, copy=True), host_params))
     card_err = compress_state_init(card.params)
@@ -1607,9 +1646,9 @@ def card_against_cpu(dev, host_params, card_step, accum=1, compressed=False) -> 
     try:
         for i in range(3):
             train_step_mod.value_and_grad = on_cpu
-            host, want = cpu_step(host, recsys_batch(SMOKE, SMOKE_BATCH, i, cpu, accum))
+            host, want = cpu_step(host, batch_of(i, cpu))
             train_step_mod.value_and_grad = on_card
-            batch = recsys_batch(SMOKE, SMOKE_BATCH, i, dev, accum)
+            batch = batch_of(i, dev)
             if compressed:
                 card, card_err, got = card_step(card, card_err, batch)
             else:
@@ -1629,7 +1668,6 @@ def card_against_cpu(dev, host_params, card_step, accum=1, compressed=False) -> 
         "moments_err_of_leaf_max": max(rel(a, b) for k in ("mu", "nu") for a, b in
                                        zip(tree_leaves(card.opt[k]), tree_leaves(host.opt[k]))),
     }
-    what = "compressed DP" if compressed else f"training (accum {accum})"
     check(grad_err <= 1e-5, f"SMOKE {what}: the card's gradients differ from the CPU's by "
           f"{grad_err} of each leaf's largest entry")
     check(metric_err <= 1e-6 and errs["params_max_abs_err"] <= 1e-6
@@ -1659,12 +1697,17 @@ def train_recsys_phase(dev, mesh, full_cfg) -> None:
     counters = kernel_counters()
     gather_before = counters["gather_sum"].launches
     host_params = tt.init_params(SMOKE, torch.Generator().manual_seed(0), device="cpu")
-    smoke = {f"accum{accum}": card_against_cpu(
-        dev, host_params, make_train_step(tt.loss, SMOKE, accum=accum, **TRAIN_SCHEDULE),
-        accum=accum) for accum in (1, 2)}
+    smoke = {}
+    for accum in (1, 2):
+        def steps():
+            return make_train_step(tt.loss, SMOKE, accum=accum, **TRAIN_SCHEDULE)
+        smoke[f"accum{accum}"] = card_against_cpu(
+            dev, host_params, steps(), steps(),
+            lambda i, d: recsys_batch(SMOKE, SMOKE_BATCH, i, d, accum), f"training (accum {accum})")
     smoke["compressed_dp"] = card_against_cpu(
-        dev, host_params, make_compressed_dp_step(tt.loss, SMOKE, mesh, "data", **TRAIN_SCHEDULE),
-        compressed=True)
+        dev, host_params, make_train_step(tt.loss, SMOKE, **TRAIN_SCHEDULE),
+        make_compressed_dp_step(tt.loss, SMOKE, mesh, "data", **TRAIN_SCHEDULE),
+        lambda i, d: recsys_batch(SMOKE, SMOKE_BATCH, i, d), "compressed DP", compressed=True)
 
     optimizer_events = []
     real_update = train_step_mod.adamw_update
@@ -2078,6 +2121,351 @@ def lm_serve_full_phase(dev, arch, smi) -> None:
     torch.cuda.empty_cache()
 
 
+def step_times(step_fn, state, batch_of, first: int, steps: int):
+    """``steps`` calls of ``step_fn`` on ``batch_of(first)``, ...; each timed
+    between two CUDA events (the batch is made before the first event):
+    (state, ms per step, each step's metrics as numbers)."""
+    ms, metrics = [], []
+    for i in range(first, first + steps):
+        batch = batch_of(i)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, m = step_fn(state, batch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, ms, metrics
+
+
+def lm_train_smoke_phase(dev, smi) -> None:
+    """Phase 17a: the five LMs at SMOKE in float32, ``make_train_step(lm_loss,
+    remat=True)`` on the card against the CPU (``card_against_cpu``): the MoE
+    group sizes read on the host, the per-segment products and the
+    recompute, under autograd on CUDA."""
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import make_train_step
+
+    out = {}
+    for arch in registry.LM_ARCHS:
+        cfg = registry.arch_config(arch, smoke=True)
+        stream = TokenStream(cfg.vocab, 2, 16, seed=1)
+
+        def batch_of(i, d, stream=stream):
+            return {k: torch.as_tensor(v, device=d) for k, v in stream.batch(i).items()}
+
+        def steps(cfg=cfg):
+            return make_train_step(tf.lm_loss, cfg, remat=True, **TRAIN_SCHEDULE)
+
+        host = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        out[arch] = card_against_cpu(dev, host, steps(), steps(), batch_of, f"{arch} training")
+    emit("lm_train_smoke", steps=3, remat=True, card_against_cpu=out, card=smi)
+
+
+def smoke_graph(arch, cfg, rng, dev):
+    """``tests/test_models_smoke.py``'s graph batch for ``arch`` on ``dev``,
+    with 11 padded (-1) edges after the real ones."""
+    from repro_torch.data.graphs import batched_molecules, grid_mesh_graph
+    from repro_torch.models.gnn import GraphBatch
+
+    pos = gids = edge_feat = None
+    if arch == "schnet":
+        feats, s, r, gids, pos = batched_molecules(4, 8, 16, cfg.d_in)
+        labels = rng.standard_normal((4, cfg.d_out)).astype(np.float32)
+    else:
+        n, e = 60, 240
+        s, r = grid_mesh_graph(n, e)
+        feats = rng.standard_normal((n, cfg.d_in)).astype(np.float32)
+        labels = (rng.integers(0, cfg.d_out, n).astype(np.int32) if cfg.task == "node_class"
+                  else rng.standard_normal((n, cfg.d_out)).astype(np.float32))
+        if cfg.d_edge:
+            edge_feat = rng.standard_normal((e + 11, cfg.d_edge)).astype(np.float32)
+        if arch == "graphcast":
+            pos = rng.standard_normal((n, 3)).astype(np.float32)
+    s, r = (np.concatenate([a, np.full(11, -1, np.int32)]) for a in (s, r))
+    return GraphBatch(*(None if a is None else torch.as_tensor(a, device=dev)
+                        for a in (feats, s, r, edge_feat, pos, gids, labels)))
+
+
+def gnn_smoke_phase(dev, smi) -> None:
+    """Phase 17b: the four GNNs at SMOKE, ``make_train_step`` on the card
+    against the CPU (``card_against_cpu``) on padded graph batches."""
+    from repro_torch.configs import registry
+    from repro_torch.models.gnn import MODELS
+    from repro_torch.train import make_train_step
+
+    out = {}
+    for arch in registry.GNN_ARCHS:
+        cfg = registry.arch_config(arch, smoke=True)
+        model = MODELS[cfg.arch]
+
+        def batch_of(i, d, arch=arch, cfg=cfg):
+            return smoke_graph(arch, cfg, np.random.default_rng(i), d)
+
+        def steps(model=model, cfg=cfg):
+            return make_train_step(model.loss, cfg, **TRAIN_SCHEDULE)
+
+        host = model.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        out[arch] = card_against_cpu(dev, host, steps(), steps(), batch_of, f"{arch} training")
+    emit("gnn_smoke", steps=3, card_against_cpu=out, card=smi)
+
+
+def lm_train_full_phase(dev, smi) -> None:
+    """Phase 18: ``LM_TRAIN_ARCH`` at FULL width (bf16 parameters, float32
+    AdamW moments) on ``LM_TRAIN_SHAPE``'s sequences of 4096 tokens,
+    ``LM_TRAIN_BATCH`` a step, through ``make_train_step(lm_loss,
+    remat=True)`` with the launcher's schedule: TRAIN_WARM warm and
+    TRAIN_TIMED timed steps (CUDA events), then one step under the profiler.
+    The warm step records the experts each MoE layer routed to, in the
+    forward and again in the backward's recompute, which must route alike.
+    The bound is ``_lm_train_flops`` (6 · active parameters · tokens) at the
+    bf16 tensor-core rate."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.transformer import layers as tl
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = registry.arch_config(LM_TRAIN_ARCH)
+    seq = registry._LM_SHAPE_DEFS[LM_TRAIN_SHAPE]["seq"]
+    total = TRAIN_WARM + TRAIN_TIMED + 2
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(
+        tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    start_wq = state.params["layers"]["attn"]["wq"][0].clone()
+    stream = TokenStream(cfg.vocab, LM_TRAIN_BATCH, seq, seed=0)
+
+    def batch_of(i):
+        return {k: torch.as_tensor(v, device=dev) for k, v in stream.batch(i).items()}
+
+    step_fn = make_train_step(tf.lm_loss, cfg, remat=True, peak_lr=3e-4,
+                              warmup_steps=max(total // 20, 10), total_steps=total)
+    tl.ROUTED = routed = []
+    try:
+        state, warm_ms, warm = step_times(step_fn, state, batch_of, 0, TRAIN_WARM)
+    finally:
+        tl.ROUTED = None
+    n_moe = cfg.n_layers - cfg.n_dense_prefix
+    per_step = routed[:2 * n_moe]
+    check(len(routed) == 2 * n_moe * TRAIN_WARM and per_step[n_moe:] == per_step[:n_moe][::-1],
+          f"{cfg.name}: the recompute routed otherwise than the forward: {routed}")
+    state, ms, timed = step_times(step_fn, state, batch_of, TRAIN_WARM, TRAIN_TIMED)
+    box = {"state": state, "i": TRAIN_WARM + TRAIN_TIMED}
+
+    def one_step():
+        box["state"], _ = step_fn(box["state"], batch_of(box["i"]))
+        box["i"] += 1
+
+    profile = device_profile(one_step, calls=1)
+    state = box["state"]
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in warm + timed]
+    check(all(np.isfinite(losses)) and all(np.isfinite(m["gnorm"]) for m in warm + timed),
+          f"{cfg.name}: training losses {losses}")
+    moved = not torch.equal(state.params["layers"]["attn"]["wq"][0], start_wq)
+    check(int(state.step) == total and moved,
+          f"{cfg.name}: the step count is {int(state.step)} or the weights did not move")
+    tokens = LM_TRAIN_BATCH * seq
+    flops = registry._lm_train_flops(cfg, tokens)
+    med = statistics.median(ms)
+    leaves = tree_leaves(state.params)
+    emit("lm_train_full", arch=LM_TRAIN_ARCH, shape=LM_TRAIN_SHAPE, batch=LM_TRAIN_BATCH,
+         registry_batch=registry._LM_SHAPE_DEFS[LM_TRAIN_SHAPE]["batch"], seq=seq,
+         remat=True, param_dtype=cfg.param_dtype, card=smi,
+         params=sum(t.numel() for t in leaves),
+         param_bytes=sum(t.numel() * t.element_size() for t in leaves),
+         moment_bytes=sum(t.numel() * t.element_size()
+                          for k in ("mu", "nu") for t in tree_leaves(state.opt[k])),
+         init_seconds=init_seconds, warm_ms=warm_ms, step_ms=ms, median_step_ms=med,
+         tok_per_s=tokens / med * 1e3, model_flops=flops,
+         bound_ms=flops / BF16_OPS_PER_S * 1e3, bound_by="operations",
+         bound_rate="989e12 bf16 dense tensor-core FLOP/s, NVIDIA H100 SXM data sheet",
+         busy_share=profile["busy_share"], host_syncs_per_step=profile["host_syncs_per_call"],
+         device_events_per_step=profile["device_events_per_call"],
+         top_device_ms=profile["top_device_ms_and_count_per_call"],
+         routed_experts_per_layer=per_step[:n_moe], n_experts=cfg.n_experts,
+         losses=losses, gnorms=[m["gnorm"] for m in warm + timed],
+         lrs=[m["lr"] for m in warm + timed], peak_memory_bytes=peak)
+    del state, box, leaves
+    torch.cuda.empty_cache()
+
+
+def launch_train_phase(smi, work) -> None:
+    """Phase 19: ``python -m repro_torch.launch.train --arch qwen1.5-0.5b
+    --steps 4`` (FULL, the reference's batch 8 and sequence 256) as a
+    subprocess, on the card by default: the reference's JSON, no restart."""
+    from repro_torch.configs import registry
+
+    ckpt = os.path.join(work, "launch_lm")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", LAUNCH_TRAIN_ARCH,
+         "--steps", str(LAUNCH_TRAIN_STEPS), "--ckpt-dir", ckpt],
+        capture_output=True, text=True, timeout=900,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+    )
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"launch.train exited {proc.returncode}: {proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout)
+    cfg = registry.arch_config(LAUNCH_TRAIN_ARCH)
+    check(list(got) == LAUNCH_TRAIN_KEYS and got["arch"] == cfg.name
+          and got["steps"] == LAUNCH_TRAIN_STEPS and got["restarts"] == 0
+          and got["tokens"] == LAUNCH_TRAIN_STEPS * 8 * 256 and got["params"] == cfg.param_count()
+          and np.isfinite(got["first_loss"]) and np.isfinite(got["final_loss"]),
+          f"launch.train printed {got}")
+    emit("launch_train", process_seconds=seconds, launcher=got, checkpoint_bytes=dir_bytes(ckpt),
+         card=smi)
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def pad_edges(senders, receivers, e_pad: int):
+    """Edge lists padded with -1 to ``e_pad`` entries."""
+    fill = np.full(e_pad - len(senders), -1, np.int32)
+    return np.concatenate([senders, fill]), np.concatenate([receivers, fill])
+
+
+def flatten_blocks(blocks, n_seeds: int):
+    """Two sampled blocks as one graph: nodes ``[seeds | hop-1 slots | hop-2
+    slots]`` (global ids; a masked slot holds node 0) and an edge from each
+    slot to its parent's position, -1 at both ends where the slot is masked."""
+    b1, b2 = blocks
+    k1, k2 = b1.src.shape[0], b2.src.shape[0]
+    dev = b1.src.device
+    ids = torch.cat([b1.nodes.int(), b2.nodes, torch.where(b2.mask, b2.src, 0)])
+    senders = n_seeds + torch.arange(k1 + k2, dtype=torch.int32, device=dev)
+    receivers = torch.cat([b1.dst, n_seeds + b2.dst])
+    mask = torch.cat([b1.mask, b2.mask])
+    return ids, torch.where(mask, senders, -1), torch.where(mask, receivers, -1)
+
+
+def gnn_bound(arch, cfg, n: int, e: int, batch, params) -> dict:
+    """Least ms of a train step, the larger of: ``_gnn_flops`` (forward and
+    backward) at the float32 rate (TF32 off), and the bytes it must move —
+    the batch read once, params, mu and nu each read and written once — at
+    the memory rate."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs import registry
+
+    ops = registry._gnn_flops(arch, cfg, n, e)
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in batch if t is not None) + 6 * param_bytes
+    ops_ms, bytes_ms = ops / FP32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_operations": ops, "bound_bytes": nbytes}
+
+
+def gnn_train_full_phase(dev, smi) -> None:
+    """Phase 20: the four GNNs at FULL width, each on the largest registry
+    shape one card holds (GNN_FULL_SHAPES): ``make_train_step``, TRAIN_WARM
+    warm and TRAIN_TIMED timed steps (CUDA events), the bound, peak memory
+    and finite losses.  gcn-cora trains on the whole ``grid_mesh_graph`` of
+    ogb_products' size, its edges padded to a multiple of 512 with -1 as the
+    registry's cell is; meshgraphnet and graphcast on one minibatch_lg batch
+    that the port's ``NeighborSampler`` draws on the card from that graph's
+    CSR (``flatten_blocks``); schnet on ``batched_molecules``."""
+    import dataclasses
+
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs import registry
+    from repro_torch.data.graphs import batched_molecules, grid_mesh_graph
+    from repro_torch.models.gnn import MODELS, GraphBatch
+    from repro_torch.relational.sampler import NeighborSampler, build_csr
+    from repro_torch.train import init_train_state, make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    big = registry._GNN_SHAPE_DEFS["ogb_products"]
+    t0 = time.perf_counter()
+    senders, receivers = grid_mesh_graph(big["n"], big["e"])
+    graph_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    row_ptr, col = build_csr(senders, receivers, big["n"])
+    csr_seconds = time.perf_counter() - t0
+    sampler = NeighborSampler(row_ptr, col, GNN_FANOUTS, device=dev)
+    del row_ptr, col
+    seeds = torch.randperm(big["n"], generator=gen, device=dev)[:GNN_SEEDS].int()
+    sample_ms = time_ms(lambda: sampler.sample(gen, seeds), reps=10, warm=2)
+    blocks = sampler.sample(gen, seeds)
+    ids, mb_senders, mb_receivers = flatten_blocks(blocks, GNN_SEEDS)
+    mb = registry._GNN_SHAPE_DEFS["minibatch_lg"]
+    check(ids.shape[0] == mb["n"] and mb_senders.shape[0] == mb["e"],
+          f"the flattened minibatch has {ids.shape[0]} nodes and {mb_senders.shape[0]} edges, "
+          f"minibatch_lg {mb['n']} and {mb['e']}")
+    sampled = {"fanouts": list(GNN_FANOUTS), "seeds": GNN_SEEDS, "sample_ms": sample_ms,
+               "graph_seconds": graph_seconds, "csr_seconds": csr_seconds,
+               "masked_slots": int((mb_senders < 0).sum())}
+    del sampler, blocks
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    results = {}
+    for arch, shape in GNN_FULL_SHAPES.items():
+        sd = registry._GNN_SHAPE_DEFS[shape]
+        cfg = dataclasses.replace(registry.arch_config(arch), d_in=sd["d"])
+        n, e = sd["n"], sd["e"]
+        pos = gids = edge_feat = None
+        if shape == "ogb_products":
+            s, r = pad_edges(senders, receivers, -(-e // 512) * 512)
+            s, r = torch.as_tensor(s, device=dev), torch.as_tensor(r, device=dev)
+            feats = randn(n, sd["d"])
+        elif shape == "minibatch_lg":
+            s, r = mb_senders, mb_receivers
+            feats = randn(big["n"], sd["d"])[ids.long()]
+        else:
+            b, atoms, bonds = MOLECULES
+            feats, s, r, gids, pos = batched_molecules(b, atoms, bonds, sd["d"])
+            s, r = pad_edges(s, r, -(-e // 512) * 512)
+            feats, s, r, gids, pos = (torch.as_tensor(a, device=dev)
+                                      for a in (feats, s, r, gids, pos))
+        if cfg.task == "node_class":
+            labels = torch.randint(0, cfg.d_out, (n,), generator=gen, device=dev,
+                                   dtype=torch.int32)
+        elif cfg.task == "graph_reg":
+            labels = randn(MOLECULES[0], cfg.d_out)
+        else:
+            labels = randn(n, cfg.d_out)
+        if cfg.d_edge:
+            edge_feat = randn(s.shape[0], cfg.d_edge)
+        if arch == "graphcast" and pos is None:
+            pos = randn(n, 3)
+        batch = GraphBatch(feats, s, r, edge_feat, pos, gids, labels)
+        check(feats.shape[0] == n, f"{arch} at {shape}: {feats.shape[0]} nodes, not {n}")
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = MODELS[cfg.arch]
+        state = init_train_state(model.init_params(cfg, gen, device=dev))
+        step_fn = make_train_step(model.loss, cfg)
+        state, warm_ms, warm = step_times(step_fn, state, lambda i: batch, 0, TRAIN_WARM)
+        state, ms, timed = step_times(step_fn, state, lambda i: batch, TRAIN_WARM, TRAIN_TIMED)
+        losses = [m["loss"] for m in warm + timed]
+        check(all(np.isfinite(losses)), f"{arch} at {shape}: losses {losses}")
+        med = statistics.median(ms)
+        results[arch] = {
+            "shape": shape, "n": n, "e": e, "e_padded": int(s.shape[0]), "d_in": cfg.d_in,
+            "layers": cfg.n_layers, "d_hidden": cfg.d_hidden,
+            "params": sum(t.numel() for t in tree_leaves(state.params)),
+            "warm_ms": warm_ms, "step_ms": ms, "median_step_ms": med,
+            **gnn_bound(arch, cfg, n, e, batch, state.params),
+            "losses": losses, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        }
+        del batch, state, feats, s, r, edge_feat, pos, gids, labels
+    emit("gnn_train_full", tf32=False, minibatch=sampled, models=results, card=smi)
+    torch.cuda.empty_cache()
+
+
 def launch_serve_phase(kind, smi) -> None:
     """Phase 16: ``python -m repro_torch.launch.serve --arch qwen1.5-0.5b
     --requests 8`` as a subprocess, on the card by default."""
@@ -2423,6 +2811,18 @@ def main() -> int:
     lm_launches = {name: c.launches for name, c in counters.items()}
     check(not any(lm_launches.values()), f"the LM path launched {lm_launches}")
 
+    # -- 17-20. training after serving: LMs and GNNs, no kernel of the repo on the path --
+    for c in counters.values():
+        c.launches = 0
+    lm_train_smoke_phase(dev, smi)
+    gnn_smoke_phase(dev, smi)
+    lm_train_full_phase(dev, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm-") as work:
+        launch_train_phase(smi, work)
+    gnn_train_full_phase(dev, smi)
+    train_launches = {name: c.launches for name, c in counters.items()}
+    check(not any(train_launches.values()), f"the training path launched {train_launches}")
+
     # -- 6c. durability: snapshots, the WAL, restore, engine checkpoints -------------
     # last, so that its files and host buffers cannot slow phases 7-9; counted
     # apart too: the durability path's own launches, restored matrices included
@@ -2452,6 +2852,7 @@ def main() -> int:
             "durable_launches": DURABLE_LAUNCHES[name],
             "sharded_launches": sharded_launches[name],
             "lm_launches": lm_launches[name],
+            "train_launches": train_launches[name],
             "max_abs_err": err[name],
             "ms": timed[name]["ms"],
             "plain_ms": timed[name]["plain_ms"],

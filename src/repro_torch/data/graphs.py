@@ -1,4 +1,4 @@
-"""Graph generators: Gn-p (GTgraph-style), RMAT, chains and random graphs.
+"""Graph generators: Gn-p (GTgraph-style), RMAT, mesh graphs, molecule batches.
 
 Gn-p and RMAT follow the paper's benchmark setup (§6.2): Gn-p graphs are
 dense Erdős–Rényi with p defaulting to 0.001; RMAT-n has n vertices and 10n
@@ -55,3 +55,44 @@ def random_graph(n: int, m: int, seed: int = 0, weights: bool = False) -> np.nda
         w = rng.integers(1, 100, size=len(edges)).astype(np.int32)
         return np.concatenate([edges, w[:, None]], axis=1)
     return edges
+
+
+def grid_mesh_graph(n_nodes: int, n_edges: int, seed: int = 0):
+    """Deterministic synthetic connectivity for mesh GNNs / GraphCast.
+
+    Returns (senders, receivers) int32[n_edges]: a ring lattice plus random
+    chords — connected, bounded degree, reproducible.
+    """
+    rng = np.random.default_rng(seed)
+    k = max(n_edges // n_nodes, 1)
+    base_s = np.repeat(np.arange(n_nodes), k)
+    base_r = (base_s + np.tile(np.arange(1, k + 1), n_nodes)) % n_nodes
+    extra = n_edges - len(base_s)
+    if extra > 0:
+        es = rng.integers(0, n_nodes, size=extra)
+        er = rng.integers(0, n_nodes, size=extra)
+        senders = np.concatenate([base_s, es])
+        receivers = np.concatenate([base_r, er])
+    else:
+        senders, receivers = base_s[:n_edges], base_r[:n_edges]
+    return senders.astype(np.int32), receivers.astype(np.int32)
+
+
+def batched_molecules(batch: int, n_atoms: int, n_bonds: int, d_feat: int, seed: int = 0):
+    """Batched small graphs (``molecule`` shape): block-diagonal edge list."""
+    rng = np.random.default_rng(seed)
+    senders, receivers, graph_ids = [], [], []
+    for g in range(batch):
+        s, r = grid_mesh_graph(n_atoms, n_bonds, seed=seed + g)
+        senders.append(s + g * n_atoms)
+        receivers.append(r + g * n_atoms)
+        graph_ids.append(np.full(n_atoms, g, np.int32))
+    feats = rng.standard_normal((batch * n_atoms, d_feat)).astype(np.float32)
+    pos = rng.standard_normal((batch * n_atoms, 3)).astype(np.float32)
+    return (
+        feats,
+        np.concatenate(senders),
+        np.concatenate(receivers),
+        np.concatenate(graph_ids),
+        pos,
+    )

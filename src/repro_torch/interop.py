@@ -15,6 +15,9 @@ step) across in the reference's tree layout, numpy on the reference's side.
 :func:`transformer_params_from_reference` carries the reference's transformer
 ``init_params`` pytree (numpy leaves, bfloat16 ones included) into the port's
 parameter dict, stacked ``layers`` axis and ``prefix`` list as they are.
+:func:`gnn_params_from_reference` and :func:`gnn_params_to_reference` carry a
+GNN's parameters (any of ``models.gnn.MODELS``) across, and
+:func:`graph_batch_from_reference` a ``GraphBatch``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import torch
 from torch.utils._pytree import tree_map
 
 from repro_torch.core.relation import relation_from_blocks
+from repro_torch.models.gnn import MODELS as GNN_MODELS
+from repro_torch.models.gnn import GNNConfig, GraphBatch
 from repro_torch.models.recsys import RecsysConfig, TwoTower
 from repro_torch.models.transformer import TransformerConfig
 from repro_torch.models.transformer import init_params as transformer_init
@@ -123,36 +128,57 @@ def transformer_params_from_reference(params, cfg: TransformerConfig, device) ->
     numpy (``jax.tree.map(np.asarray, params)``) → the port's parameter dict on
     ``device``, with the same keys, shapes and dtypes."""
     out = tree_map(lambda a: _tensor(a, device), params)
-    _same_tree(out, transformer_init(cfg, torch.Generator(), device="meta"), "params")
+    _same_tree(out, transformer_init(cfg, torch.Generator(), device="meta"), "params",
+               "transformer_params_from_reference")
     return out
 
 
-def _same_tree(got, want, path: str) -> None:
+def _same_tree(got, want, path: str, who: str) -> None:
     """Raise unless ``got`` has ``want``'s keys, list lengths, shapes and dtypes."""
     if isinstance(want, dict):
         if not isinstance(got, dict) or got.keys() != want.keys():
-            raise ValueError(f"transformer_params_from_reference: {path} has "
+            raise ValueError(f"{who}: {path} has "
                              f"{sorted(got) if isinstance(got, dict) else type(got).__name__}, "
                              f"the config makes {sorted(want)}")
         for key in want:
-            _same_tree(got[key], want[key], f"{path}.{key}")
+            _same_tree(got[key], want[key], f"{path}.{key}", who)
     elif isinstance(want, list):
         if not isinstance(got, list) or len(got) != len(want):
-            raise ValueError(f"transformer_params_from_reference: {path} is not a list of "
-                             f"{len(want)} layers")
+            raise ValueError(f"{who}: {path} is not a list of {len(want)} layers")
         for i, (g, w) in enumerate(zip(got, want)):
-            _same_tree(g, w, f"{path}[{i}]")
+            _same_tree(g, w, f"{path}[{i}]", who)
     elif got.shape != want.shape or got.dtype != want.dtype:
-        raise ValueError(f"transformer_params_from_reference: {path} is {got.dtype}"
-                         f"{list(got.shape)}, the config makes {want.dtype}{list(want.shape)}")
+        raise ValueError(f"{who}: {path} is {got.dtype}{list(got.shape)}, the config makes "
+                         f"{want.dtype}{list(want.shape)}")
+
+
+def _to_numpy(t) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
 
 
 def transformer_params_to_reference(params) -> dict:
     """The inverse, as a tree of numpy arrays; a bfloat16 leaf comes back as
     float32 holding the same values (numpy has no bfloat16 of its own)."""
+    return tree_map(_to_numpy, params)
 
-    def conv(t):
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
 
-    return tree_map(conv, params)
+def gnn_params_from_reference(params, cfg: GNNConfig, device) -> dict:
+    """A reference GNN's ``init_params(key, cfg)`` pytree, leaves as numpy →
+    the port's parameter dict for ``cfg.arch`` on ``device``, with the same
+    keys, shapes and dtypes."""
+    out = tree_map(lambda a: _tensor(a, device), params)
+    want = GNN_MODELS[cfg.arch].init_params(cfg, torch.Generator(), device="meta")
+    _same_tree(out, want, "params", "gnn_params_from_reference")
+    return out
+
+
+def gnn_params_to_reference(params) -> dict:
+    """The inverse, as a tree of numpy arrays."""
+    return tree_map(_to_numpy, params)
+
+
+def graph_batch_from_reference(g, device) -> GraphBatch:
+    """A reference ``GraphBatch`` (arrays or numpy, ``None`` fields kept) →
+    the port's, its tensors on ``device``."""
+    return GraphBatch(*(None if f is None else _tensor(f, device) for f in g))

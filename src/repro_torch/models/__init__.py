@@ -1,4 +1,4 @@
 """Models on torch: the two-tower retrieval model (``models.recsys``:
-serving, training and its vocab-sharded form) and the transformer LMs
-(``models.transformer``: serving; LM training and the GNNs are later work,
-ROADMAP A11)."""
+serving, training and its vocab-sharded form), the transformer LMs
+(``models.transformer``: serving and training) and the GNNs
+(``models.gnn``: GCN, MeshGraphNet, SchNet, GraphCast)."""

@@ -22,7 +22,9 @@ from repro_torch.models.transformer.config import TransformerConfig
 NEG_INF = -1e30
 
 # When a list, ``moe_apply`` appends to it the number of experts each call
-# routed to, read from the group sizes it already holds on the host.
+# routed to, read from the group sizes it already holds on the host.  Under
+# ``forward(remat=True)`` the backward pass recomputes each layer, reading its
+# group sizes again: the layers' counts then follow once more, last layer first.
 ROUTED: list[int] | None = None
 
 

@@ -1,5 +1,5 @@
 """Relational primitives on torch tensors: sorted tables, segment
-aggregates and embedding bags.
+aggregates, embedding bags and neighbor sampling.
 
 The Datalog engine and the recsys model sit on the same primitives: sorted
 integer tables, compact-key dedup, searchsorted joins and segment
@@ -23,6 +23,7 @@ from repro_torch.relational.segment import (
     degree,
 )
 from repro_torch.relational.embedding import embedding_bag, sampled_softmax_loss
+from repro_torch.relational.sampler import NeighborSampler, SampledBlock, build_csr
 
 __all__ = [
     "SENTINEL",
@@ -39,4 +40,7 @@ __all__ = [
     "degree",
     "embedding_bag",
     "sampled_softmax_loss",
+    "NeighborSampler",
+    "SampledBlock",
+    "build_csr",
 ]

@@ -428,15 +428,11 @@ def test_cli_runs_as_a_module_on_the_host():
 
 # -- the packages' public names ------------------------------------------------
 
-#: reference names whose modules are not ported yet (ROADMAP.md item A11), and
-#: the distributed layer's JAX-only names: ``shard_map`` (each rank is a process
-#: that runs its shard's code) and ``collective_bytes`` (it parses XLA's HLO);
-#: for ``configs``, which has no ``__all__``, its modules: the GNN configs wait
-#: for A11
+#: reference names whose modules are not ported yet (ROADMAP.md item A11: the
+#: sharding rules), and the distributed layer's JAX-only names: ``shard_map``
+#: (each rank is a process that runs its shard's code) and ``collective_bytes``
+#: (it parses XLA's HLO)
 UNPORTED = {
-    "relational": {"NeighborSampler", "build_csr"},
-    "data": {"grid_mesh_graph", "batched_molecules"},
-    "configs": {"gcn_cora", "graphcast", "meshgraphnet", "schnet"},
     "distributed": {"param_sharding", "batch_sharding", "lm_param_spec",
                     "shard_map", "collective_bytes"},
 }
@@ -445,7 +441,7 @@ UNPORTED = {
 @pytest.mark.parametrize("package", ["core", "obs", "relational", "data", "analysis",
                                      "serve_datalog", "persist", "loadgen", "optim", "train",
                                      "distributed", "models.recsys", "models.transformer",
-                                     "configs"])
+                                     "models.gnn", "configs"])
 def test_exports_cover_the_reference(package):
     ref = importlib.import_module(f"repro.{package}")
     port = importlib.import_module(f"repro_torch.{package}")

@@ -668,3 +668,110 @@ def test_launch_serve_runs_on_the_card_by_default(cuda):
     assert proc.returncode == 0, proc.stderr[-3000:]
     got = json.loads(proc.stdout)
     assert got["device"] == torch.cuda.get_device_name(0) and got["generated_tokens"] == 15
+
+
+# -- training after serving: LM training, the GNNs and the sampler ------------------
+
+
+def _grads(loss_fn, params, batch, cfg, **kwargs):
+    from repro_torch.train.step import value_and_grad
+
+    return value_and_grad(loss_fn, params, batch, cfg, **kwargs)
+
+
+@pytest.mark.parametrize("arch", list(lm_registry.LM_ARCHS))
+def test_lm_training_gradients_on_the_card_match_cpu(cuda, arch):
+    """``lm_loss(remat=True)``'s gradients on the card equal the CPU's within
+    1e-5 of each leaf's largest entry: the MoE group sizes read on the host,
+    the per-segment products and the recompute, under autograd on CUDA."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.data.tokens import TokenStream
+
+    cfg = lm_registry.arch_config(arch, smoke=True)
+    host = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = TokenStream(cfg.vocab, 2, 16).batch(0)
+    (want_loss, want), (loss, got) = (
+        _grads(tf.lm_loss, p, {k: torch.as_tensor(v, device=d) for k, v in batch.items()},
+               cfg, remat=True)
+        for p, d in ((host, "cpu"), (tree_map(lambda t: t.to(cuda), host), cuda)))
+    assert loss.is_cuda and _rel(loss.cpu(), want_loss) <= 1e-5
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert _rel(a.cpu(), b) <= 1e-5
+
+
+def _gnn_batch(arch, cfg, device):
+    """A ring-lattice graph with 11 padded (-1) edges; molecules for schnet."""
+    from repro_torch.data.graphs import batched_molecules, grid_mesh_graph
+    from repro_torch.models.gnn import GraphBatch
+
+    rng = np.random.default_rng(0)
+    pos = gids = edge_feat = None
+    if arch == "schnet":
+        feats, s, r, gids, pos = batched_molecules(4, 8, 16, cfg.d_in)
+        labels = rng.standard_normal((4, cfg.d_out)).astype(np.float32)
+    else:
+        s, r = grid_mesh_graph(60, 240)
+        feats = rng.standard_normal((60, cfg.d_in)).astype(np.float32)
+        labels = (rng.integers(0, cfg.d_out, 60).astype(np.int32) if cfg.task == "node_class"
+                  else rng.standard_normal((60, cfg.d_out)).astype(np.float32))
+        if cfg.d_edge:
+            edge_feat = rng.standard_normal((251, cfg.d_edge)).astype(np.float32)
+        if arch == "graphcast":
+            pos = rng.standard_normal((60, 3)).astype(np.float32)
+    s, r = (np.concatenate([a, np.full(11, -1, np.int32)]) for a in (s, r))
+    return GraphBatch(*(None if a is None else torch.as_tensor(a, device=device)
+                        for a in (feats, s, r, edge_feat, pos, gids, labels)))
+
+
+@pytest.mark.parametrize("arch", ["gcn-cora", "meshgraphnet", "schnet", "graphcast"])
+def test_gnn_gradients_on_the_card_match_cpu(cuda, arch):
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.models.gnn import MODELS
+
+    cfg = lm_registry.arch_config(arch, smoke=True)
+    model = MODELS[cfg.arch]
+    host = model.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    (want_loss, want), (loss, got) = (
+        _grads(model.loss, p, _gnn_batch(arch, cfg, d), cfg)
+        for p, d in ((host, "cpu"), (tree_map(lambda t: t.to(cuda), host), cuda)))
+    assert loss.is_cuda and _rel(loss.cpu(), want_loss) <= 1e-5
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert _rel(a.cpu(), b) <= 1e-5
+
+
+def test_sampler_on_the_card_matches_cpu(cuda):
+    """Given the card's draws, the blocks on the card equal the CPU's bit for
+    bit, and every sampled slot is an in-neighbor of its frontier node."""
+    from repro_torch.data.graphs import grid_mesh_graph
+    from repro_torch.relational.sampler import NeighborSampler, build_csr
+
+    s, r = grid_mesh_graph(500, 2600, seed=1)
+    row_ptr, col = build_csr(s, r, 500)
+    card = NeighborSampler(row_ptr, col, (5, 3), device=cuda)
+    host = NeighborSampler(row_ptr, col, (5, 3), device="cpu")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    frontier = torch.arange(0, 500, 7, dtype=torch.int32)
+    for fanout in (5, 3):
+        u = card.draws(gen, frontier.shape[0], fanout)
+        got = card.sample_layer(frontier.to(cuda), fanout, u)
+        want = host.sample_layer(frontier, fanout, u.cpu())
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g.cpu(), w)
+        edges = set(zip(s.tolist(), r.tolist()))
+        assert all((a, frontier[i // fanout].item()) in edges
+                   for i, a in enumerate(want.src.tolist()))
+        frontier = torch.where(want.mask, want.src, 0)
+
+
+def test_launch_train_runs_on_the_card_by_default(cuda, tmp_path):
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "granite-moe-1b-a400m",
+         "--smoke", "--steps", "2", "--batch", "2", "--seq", "16", "--ckpt-dir", str(tmp_path)],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout)
+    assert got["restarts"] == 0 and got["steps"] == 2 and np.isfinite(got["final_loss"])

@@ -45,7 +45,11 @@ def test_port_files_found():
                    "models/transformer/layers.py", "models/transformer/model.py",
                    "configs/registry.py", "configs/qwen2_7b.py", "configs/deepseek_v2_lite_16b.py",
                    "configs/qwen1_5_0_5b.py", "configs/gemma_2b.py",
-                   "configs/granite_moe_1b_a400m.py", "data/tokens.py"):
+                   "configs/granite_moe_1b_a400m.py", "data/tokens.py",
+                   "relational/sampler.py", "models/gnn/__init__.py", "models/gnn/common.py",
+                   "models/gnn/gcn.py", "models/gnn/meshgraphnet.py", "models/gnn/schnet.py",
+                   "models/gnn/graphcast.py", "configs/gcn_cora.py", "configs/graphcast.py",
+                   "configs/meshgraphnet.py", "configs/schnet.py"):
         assert f"repro_torch/{module}" in names
 
 
@@ -72,8 +76,9 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.train, repro_torch.launch.train\n"
         "import repro_torch.models.transformer, repro_torch.train.serve, repro_torch.launch.serve\n"
         "import repro_torch.configs.registry, repro_torch.data.tokens\n"
+        "import repro_torch.models.gnn, repro_torch.relational.sampler\n"
         "from repro_torch.configs import registry\n"
-        "for arch in registry.LM_ARCHS:\n"
+        "for arch in registry.ALL_ARCHS:\n"
         "    registry.arch_config(arch)\n"
         "print('ok')\n"
     )

@@ -85,22 +85,40 @@ def test_cli_runs_on_cuda_unless_told_otherwise():
     assert rc != 0 and 'device="cpu"' in err
 
 
-def test_language_model_training_waits_for_its_roadmap_item():
-    rc, out, err = _finish(_port("--arch", "gemma-2b", "--smoke", "--device", "cpu"))
-    assert rc != 0 and out == ""
-    assert "ROADMAP A11, LM training" in err and "gemma-2b" in err
-    assert "repro_torch.launch.serve" in err
+def test_language_model_training_waits_for_its_roadmap_item(tmp_path):
+    """The roadmap item (A11, LM training) is done: ``--arch <lm> --smoke``
+    trains through ``train_lm`` with JAX and ``repro`` blocked, and prints the
+    reference's keys (``tests/test_torch_lm_train.py`` holds its numbers
+    against the reference's launcher)."""
+    rc, out, err = _finish(_port("--arch", "gemma-2b", "--smoke", "--steps", "2", "--batch",
+                                 "2", "--seq", "8", "--device", "cpu", "--ckpt-dir",
+                                 str(tmp_path)))
+    assert rc == 0, err[-3000:]
+    got = json.loads(out)
+    assert list(got) == ["arch", "steps", "final_loss", "first_loss", "tokens", "tok_per_s",
+                         "restarts", "straggler_events", "params"]
+    assert got["arch"] == "gemma-smoke" and got["steps"] == 2 and got["tokens"] == 32
+    assert got["restarts"] == 0 and got["first_loss"] > 0
 
 
-def test_language_model_options_are_refused_for_datalog(capsys):
-    """``--steps`` and the other options of the language models have no
-    effect on a Datalog run, so passing one there is an error."""
+def test_language_model_options_are_refused_for_datalog(tmp_path, capsys):
+    """The language models' options parse with a Datalog arch and leave the
+    run as it was, as the reference's parser has them (an option the parser
+    does not know is still an error)."""
     from repro_torch.launch.train import main
 
+    args = ["--arch", "datalog:tc", "--graph-n", "50", "--device", "cpu", "--ckpt-dir",
+            str(tmp_path)]
+    main(args)
+    plain = json.loads(capsys.readouterr().out)
+    main([*args, "--steps", "10", "--batch", "3", "--seq", "5", "--lr", "1e-3", "--smoke"])
+    with_options = json.loads(capsys.readouterr().out)
+    plain.pop("seconds"), with_options.pop("seconds")
+    assert with_options == plain
     with pytest.raises(SystemExit) as exc:
-        main(["--arch", "datalog:tc", "--steps", "10", "--device", "cpu"])
+        main([*args, "--epochs", "10"])
     assert exc.value.code == 2
-    assert "unrecognized arguments: --steps 10" in capsys.readouterr().err
+    assert "unrecognized arguments: --epochs 10" in capsys.readouterr().err
 
 
 def test_coordinator_initialises_the_process_group(tmp_path):
