@@ -153,6 +153,29 @@ Phases, one output line each:
    graph's CSR, flattened to 169,984 nodes and 168,960 edges; the sampler's
    ms), schnet on molecule: step ms against a bound, peak memory, finite
    losses.
+21. sharded_lm — the sharded forms on one NCCL rank as a (1, 1) ``("data",
+   "model")`` mesh: granite-moe-1b-a400m at FULL width (as phase 18)
+   through ``make_sharded_train_step`` under ``mesh_context``, its state and
+   batch cut by ``distributed.place``, the MoE through the expert-parallel
+   form (every call counted): 1 warm and 3 timed steps, the first loss
+   against the unsharded loss of the same parameters and batch; then
+   deepseek-v2-lite-16b at FULL, ``forward`` of [4, 2048] under the mesh
+   against the same without it (within 5e-2 of the logits' largest
+   value); the routed experts of both;
+22. halo_gcn — gcn-cora at FULL width through ``loss_halo`` on a ring of
+   one (halo 512, senders offset by the halo) on the ring lattice of the
+   ogb_products-sized graph of phase 20 (its 25 · 2,449,029 lattice edges;
+   the reference's halo form normalises both ends by the receiver's degree,
+   which is GCN's where all degrees are equal): train steps against
+   ``gcn.loss``'s on the same graph, the loss within 1e-5, the gradients
+   within 1e-4 (with ``gcn.loss``'s own run-to-run spread beside them);
+23. cells — ``configs.registry.build_cell`` for every ``all_cells()`` entry on
+   that mesh (arguments on ``meta``, nothing allocated): counts, skip
+   reasons, MODEL_FLOPS and argument bytes; then one cell of each kind whose
+   arguments one card holds, run on arguments made from ``SEED``
+   (gemma-2b long_500k's bonus decode step, gcn-cora full_graph_sm's train
+   step, two-tower serve_p99's scores), each against the plain function;
+   ``sharding_launches`` counts each kernel's launches in phases 21-23.
 
 Then a ``kernels`` JSON line (``launches``: each kernel's count on its main
 path — TC and SG at G10K for ``bitmm`` and ``bitmm_fused_delta``, phases 8
@@ -162,8 +185,9 @@ phase 6b; ``durable_launches``: the durability path's own work in phase
 on restored instances, checkpointed and resumed engine runs — and not the
 from-scratch references or the live instances built to compare with;
 ``sharded_launches``: phase 10's three sharded fixpoints; ``lm_launches``:
-phases 14-16 and ``train_launches``: phases 17-20, which must be 0, as no
-kernel of the repo lies on the LM or GNN path), the card's name
+phases 14-16, ``train_launches``: phases 17-20 and ``sharding_launches``:
+phases 21-23, which must be 0, as no kernel of the repo lies on the LM or
+GNN path and the sharded recsys scores take torch ops), the card's name
 and power limit, and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero; so does a machine without CUDA.
 Every instance is admitted through the static analyzer's rewrites
@@ -252,6 +276,21 @@ GNN_FULL_SHAPES = {"gcn-cora": "ogb_products", "meshgraphnet": "minibatch_lg",
                    "graphcast": "minibatch_lg", "schnet": "molecule"}
 GNN_SEEDS, GNN_FANOUTS = 1024, (15, 10)
 MOLECULES = (128, 30, 64)     # molecule: 128 graphs of 30 atoms and 64 bonds
+# phases 21-23, the sharded forms and the registry's cells
+SHARDED_TIMED = 3
+# granite's first loss through the sharded step against the unsharded loss, and
+# a cell's bf16 decode logits against the plain decode step: one bf16 step
+# (2**-8) of the largest value; at (1, 1) both run the same products
+SHARDED_LOSS_TOL = 2.0 ** -8
+EP_FORWARD = ("deepseek-v2-lite-16b", 4, 2048)
+# loss_halo against gcn.loss: the loss within 1e-5; the weights' gradients, each
+# a float32 sum over 6.1e7 edges added in another order (atomically on the
+# card), within 1e-4 of their largest entry (2.5e-5 measured on an H100 80GB HBM3
+# at 700 W, where gcn.loss against itself moved 1.8e-5)
+HALO, HALO_TOL, HALO_GRAD_TOL = 512, 1e-5, 1e-4
+SEED = 0
+RUN_CELLS = (("gemma-2b", "long_500k"), ("gcn-cora", "full_graph_sm"),
+             ("two-tower-retrieval", "serve_p99"))
 TXN_PROG = """
 tc(x,y) :- arc(x,y).
 tc(x,y) :- rail(x,y).
@@ -2213,7 +2252,7 @@ def gnn_smoke_phase(dev, smi) -> None:
     emit("gnn_smoke", steps=3, card_against_cpu=out, card=smi)
 
 
-def lm_train_full_phase(dev, smi) -> None:
+def lm_train_full_phase(dev, smi) -> float:
     """Phase 18: ``LM_TRAIN_ARCH`` at FULL width (bf16 parameters, float32
     AdamW moments) on ``LM_TRAIN_SHAPE``'s sequences of 4096 tokens,
     ``LM_TRAIN_BATCH`` a step, through ``make_train_step(lm_loss,
@@ -2297,6 +2336,7 @@ def lm_train_full_phase(dev, smi) -> None:
          lrs=[m["lr"] for m in warm + timed], peak_memory_bytes=peak)
     del state, box, leaves
     torch.cuda.empty_cache()
+    return med
 
 
 def launch_train_phase(smi, work) -> None:
@@ -2365,7 +2405,7 @@ def gnn_bound(arch, cfg, n: int, e: int, batch, params) -> dict:
             "bound_operations": ops, "bound_bytes": nbytes}
 
 
-def gnn_train_full_phase(dev, smi) -> None:
+def gnn_train_full_phase(dev, smi) -> float:
     """Phase 20: the four GNNs at FULL width, each on the largest registry
     shape one card holds (GNN_FULL_SHAPES): ``make_train_step``, TRAIN_WARM
     warm and TRAIN_TIMED timed steps (CUDA events), the bound, peak memory
@@ -2464,6 +2504,310 @@ def gnn_train_full_phase(dev, smi) -> None:
         del batch, state, feats, s, r, edge_feat, pos, gids, labels
     emit("gnn_train_full", tf32=False, minibatch=sampled, models=results, card=smi)
     torch.cuda.empty_cache()
+    return results["gcn-cora"]["median_step_ms"]
+
+
+def tree_leaves_of(tree) -> list:
+    """The tensors of a tree (``None`` is a leaf in torch's trees)."""
+    from torch.utils._pytree import tree_leaves
+
+    return [x for x in tree_leaves(tree) if x is not None]
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches inside the block (references to compare with) are
+    taken back out of the wrappers' counts."""
+    counters = kernel_counters()
+    saved = {name: c.launches for name, c in counters.items()}
+    try:
+        yield
+    finally:
+        for name, c in counters.items():
+            c.launches = saved[name]
+
+
+def sharded_lm_phase(dev, mesh, smi, plain_ms: float) -> None:
+    """Phase 21: granite's sharded step through the expert-parallel MoE, and
+    deepseek's forward under the mesh against the dense dispatch."""
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.distributed import batch_sharding, mesh_context, param_sharding, place
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.transformer import layers as tl
+    from repro_torch.train import init_train_state, make_sharded_train_step
+
+    ep_calls = []
+    ep = tl._moe_apply_ep
+
+    def counted(*args):
+        ep_calls.append(1)
+        return ep(*args)
+
+    cfg = registry.arch_config(LM_TRAIN_ARCH)
+    seq = registry._LM_SHAPE_DEFS[LM_TRAIN_SHAPE]["seq"]
+    n_moe = cfg.n_layers - cfg.n_dense_prefix
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(
+        tf.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev))
+    stream = TokenStream(cfg.vocab, LM_TRAIN_BATCH, seq, seed=SEED)
+
+    def whole(i):
+        return {k: torch.as_tensor(v, device=dev) for k, v in stream.batch(i).items()}
+
+    with torch.no_grad():
+        plain_loss = float(tf.lm_loss(state.params, whole(0), cfg, remat=True))
+    sh = param_sharding(state, mesh)
+    state = place(state, sh)
+
+    def batch_of(i):
+        b = whole(i)
+        return place(b, batch_sharding(b, mesh))
+
+    step_fn = make_sharded_train_step(tf.lm_loss, cfg, mesh, sh.params, remat=True,
+                                      peak_lr=3e-4, warmup_steps=10,
+                                      total_steps=1 + SHARDED_TIMED)
+    tl._moe_apply_ep, tl.ROUTED = counted, []
+    routed = tl.ROUTED
+    try:
+        with mesh_context(mesh, ("data",)):
+            state, warm_ms, warm = step_times(step_fn, state, batch_of, 0, 1)
+            tl.ROUTED = None
+            state, ms, timed = step_times(step_fn, state, batch_of, 1, SHARDED_TIMED)
+    finally:
+        tl._moe_apply_ep, tl.ROUTED = ep, None
+    check(len(ep_calls) == 2 * n_moe * (1 + SHARDED_TIMED),
+          f"{cfg.name}: {len(ep_calls)} expert-parallel MoE calls, expected "
+          f"{2 * n_moe * (1 + SHARDED_TIMED)} (forward and recompute per layer and step)")
+    losses = [m["loss"] for m in warm + timed]
+    diff = abs(losses[0] - plain_loss) / abs(plain_loss)
+    check(all(np.isfinite(losses)) and diff <= SHARDED_LOSS_TOL,
+          f"{cfg.name}: sharded first loss {losses[0]} against the unsharded {plain_loss}")
+    granite = {
+        "arch": LM_TRAIN_ARCH, "batch": LM_TRAIN_BATCH, "seq": seq, "remat": True,
+        "shardings": {"sharded_leaves": sum(1 for x in tree_leaves_of(sh) if x.spec)},
+        "ep_calls": len(ep_calls), "first_loss": losses[0], "unsharded_first_loss": plain_loss,
+        "loss_rel_diff": diff, "tol": SHARDED_LOSS_TOL, "losses": losses,
+        "warm_ms": warm_ms, "step_ms": ms, "median_step_ms": statistics.median(ms),
+        "lm_train_full_median_step_ms": plain_ms,
+        "routed_experts_per_layer": routed[:n_moe], "n_experts": cfg.n_experts,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del state, sh
+    torch.cuda.empty_cache()
+
+    arch, batch, seq = EP_FORWARD
+    cfg = registry.arch_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = tf.init_params(cfg, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=dev)
+    ep_calls.clear()
+    out = {}
+
+    def forward(key):
+        out[key] = tf.forward(params, tokens, cfg)
+
+    with torch.no_grad():
+        dense_routed = routed_in(lambda: forward("dense"))
+        tl._moe_apply_ep = counted
+        try:
+            with mesh_context(mesh, ("data",)):
+                ep_routed = routed_in(lambda: forward("ep"))
+        finally:
+            tl._moe_apply_ep = ep
+    (want, want_aux), (got, got_aux) = out.pop("dense"), out.pop("ep")
+    err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    check(len(ep_calls) == cfg.n_layers - cfg.n_dense_prefix and err <= LM_FULL_TOL,
+          f"{arch}: {len(ep_calls)} expert-parallel calls, logits {err} of the largest apart")
+    emit("sharded_lm", mesh=[1, 1], granite=granite, card=smi, deepseek={
+        "arch": arch, "batch": batch, "seq": seq, "ep_calls": len(ep_calls),
+        "logits_rel_err": err, "tol": LM_FULL_TOL, "aux": float(got_aux),
+        "dense_aux": float(want_aux), "routed_experts_per_layer": ep_routed,
+        "dense_routed_experts_per_layer": dense_routed, "n_experts": cfg.n_experts})
+    del params, got, want
+    torch.cuda.empty_cache()
+
+
+def halo_gcn_phase(dev, mesh, smi, plain_ms: float) -> None:
+    """Phase 22: ``loss_halo`` on a ring of one against ``gcn.loss`` at
+    FULL width on the ogb_products-sized ring lattice."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.data.graphs import grid_mesh_graph
+    from repro_torch.models.gnn import GraphBatch, gcn
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.step import value_and_grad
+
+    big = registry._GNN_SHAPE_DEFS["ogb_products"]
+    n, k = big["n"], big["e"] // big["n"]
+    cfg = dataclasses.replace(registry.arch_config("gcn-cora"), d_in=big["d"])
+    senders, receivers = grid_mesh_graph(n, k * n)          # its lattice: no chords
+    e_pad = -(-(k * n) // 512) * 512
+    s, r = (torch.as_tensor(a, device=dev) for a in pad_edges(senders, receivers, e_pad))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    feats = torch.randn((n, cfg.d_in), generator=gen, device=dev)
+    labels = torch.randint(0, cfg.d_out, (n,), generator=gen, device=dev, dtype=torch.int32)
+    plain = GraphBatch(feats, s, r, None, None, None, labels)
+    local = plain._replace(senders=torch.where(s >= 0, s + HALO, -1))
+    params = gcn.init_params(cfg, gen, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    halo_kw = dict(mesh=mesh, dp_axes=("data",), halo=HALO)
+    got, got_g = value_and_grad(gcn.loss_halo, params, local, cfg, **halo_kw)
+    want, want_g = value_and_grad(gcn.loss, params, plain, cfg)
+    _, again_g = value_and_grad(gcn.loss, params, plain, cfg)
+    loss_err = abs(float(got) - float(want))
+    grad_err = max(rel_err(got_g[key], want_g[key]) for key in params)
+    check(loss_err <= HALO_TOL and grad_err <= HALO_GRAD_TOL,
+          f"loss_halo {float(got)} against gcn.loss {float(want)}, gradients {grad_err} apart")
+    runs = {}
+    for name, loss_fn, batch, kw in (("halo", gcn.loss_halo, local, halo_kw),
+                                     ("plain", gcn.loss, plain, {})):
+        state = init_train_state({key: w.clone() for key, w in params.items()})
+        step_fn = make_train_step(loss_fn, cfg, **kw)
+        state, warm_ms, warm = step_times(step_fn, state, lambda i: batch, 0, 1)
+        state, ms, timed = step_times(step_fn, state, lambda i: batch, 1, SHARDED_TIMED)
+        runs[name] = {"warm_ms": warm_ms, "step_ms": ms, "median_step_ms": statistics.median(ms),
+                      "losses": [m["loss"] for m in warm + timed]}
+    check(all(np.isfinite(runs["halo"]["losses"])), f"loss_halo losses {runs['halo']['losses']}")
+    emit("halo_gcn", arch="gcn-cora", n=n, e=k * n, e_padded=e_pad,
+         chords_left_out=big["e"] - k * n, halo=HALO, ring=1, loss=float(got),
+         gcn_loss=float(want), loss_abs_diff=loss_err, tol=HALO_TOL, grad_rel_err=grad_err,
+         grad_tol=HALO_GRAD_TOL,
+         gcn_grad_run_to_run=max(rel_err(again_g[key], want_g[key]) for key in params),
+         steps=runs, gnn_train_full_gcn_median_step_ms=plain_ms,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), card=smi)
+    del plain, local, feats, s, r
+    torch.cuda.empty_cache()
+
+
+def arg_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves_of(tree))
+
+
+def cells_phase(dev, mesh, smi) -> None:
+    """Phase 23: every registry cell built on the mesh, then RUN_CELLS run."""
+    import collections
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.two_tower_retrieval import FULL
+    from repro_torch.data.recsys_stream import RecsysStream
+    from repro_torch.distributed import place
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.gnn import GraphBatch, gcn
+    from repro_torch.models.recsys import two_tower as tt
+    from repro_torch.train import init_train_state, make_train_step
+
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cells = {key: registry.build_cell(*key, mesh) for key in registry.all_cells()}
+    build_seconds = time.perf_counter() - t0
+    check(torch.cuda.memory_allocated() == before, "building the cells allocated on the card")
+    check(all(x.device.type == "meta" for c in cells.values() for x in tree_leaves_of(c.args)),
+          "a cell's arguments are not meta tensors")
+    name = "/".join
+    emit("cells", built=len(cells), build_seconds=build_seconds,
+         kinds=collections.Counter(c.kind for c in cells.values()),
+         steps=collections.Counter(c.step for c in cells.values()),
+         skipped={name(k): c.skip for k, c in cells.items() if c.skip},
+         bonus=[name(k) for k, c in cells.items() if c.bonus],
+         model_flops={name(k): c.model_flops for k, c in cells.items()},
+         arg_bytes={name(k): arg_bytes(c.args) for k, c in cells.items()}, card=smi)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ran = {}
+
+    def timed_calls(fn, calls=1 + SHARDED_TIMED):
+        out, ms = None, []
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return out, ms
+
+    for key in RUN_CELLS:
+        cell = cells[key]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if cell.kind == "lm":
+            cfg = registry.arch_config(key[0])
+            params_sds, cache_sds, tok_sds, _ = cell.args
+            seq = cache_sds["a"].shape[2]
+            params = tf.init_params(cfg, gen, device=dev)
+            cache = tf.init_cache(cfg, tok_sds.shape[0], seq, device=dev)
+            tokens = torch.randint(0, cfg.vocab, tok_sds.shape, generator=gen, device=dev,
+                                   dtype=torch.int32)
+            pos = torch.tensor(seq - 1, dtype=torch.int32)
+            args = place((params, cache, tokens, pos), cell.in_shardings)
+            (logits, _), ms = timed_calls(lambda: cell.fn(*args))
+            with uncounted(), torch.no_grad():
+                want, _ = tf.decode_step(params, cache, tokens, seq - 1, cfg)
+            err = rel_err(logits, want)
+            check(logits.shape == want.shape and bool(torch.isfinite(logits).all())
+                  and err <= SHARDED_LOSS_TOL, f"{key}: logits {tuple(logits.shape)}, {err} apart")
+            result = {"out_shape": list(logits.shape), "rel_err_vs_plain": err}
+            del params, cache, args, logits, want
+        elif cell.kind == "gnn":
+            state_sds, g_sds = cell.args
+            cfg = dataclasses.replace(registry.arch_config(key[0]),
+                                      d_in=g_sds.node_feat.shape[1])
+            n, e = g_sds.node_feat.shape[0], g_sds.senders.shape[0]
+            snd = torch.randint(0, n, (e,), generator=gen, device=dev, dtype=torch.int32)
+            snd[registry._GNN_SHAPE_DEFS[key[1]]["e"]:] = -1          # the padded edges
+            g = GraphBatch(torch.randn((n, cfg.d_in), generator=gen, device=dev), snd,
+                           torch.where(snd >= 0, torch.randint(
+                               0, n, (e,), generator=gen, device=dev, dtype=torch.int32), -1),
+                           None, None, None,
+                           torch.randint(0, cfg.d_out, (n,), generator=gen, device=dev,
+                                         dtype=torch.int32))
+            params = gcn.init_params(cfg, gen, device=dev)
+            box = {"state": place(init_train_state({k: w.clone() for k, w in params.items()}),
+                                  cell.in_shardings[0])}
+            g_blk = place(g, cell.in_shardings[1])
+
+            def one_step():
+                box["state"], m = cell.fn(box["state"], g_blk)
+                return m
+
+            metrics, ms = timed_calls(one_step)
+            with uncounted():
+                plain = init_train_state(params)
+                step = make_train_step(gcn.loss, cfg)
+                for _ in range(1 + SHARDED_TIMED):
+                    plain, want = step(plain, g)
+            err = max(rel_err(box["state"].params[k], plain.params[k]) for k in params)
+            check(np.isfinite(float(metrics["loss"])) and err <= 1e-5
+                  and abs(float(metrics["loss"]) - float(want["loss"])) <= 1e-5,
+                  f"{key}: loss {float(metrics['loss'])} against {float(want['loss'])}, "
+                  f"params {err} apart")
+            result = {"loss": float(metrics["loss"]), "params_rel_err_vs_plain": err}
+            del box, g, g_blk, plain
+        else:
+            batch_sds = cell.args[1]
+            params = tt.init_params(FULL, gen, device=dev)
+            stream = RecsysStream(FULL.user_vocab, FULL.item_vocab, FULL.user_fields,
+                                  FULL.item_fields, FULL.field_hots, FULL.n_dense_feat,
+                                  batch=batch_sds["user_ids"].shape[0], seed=SEED)
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in stream.batch(0).items()}
+            args = place((params, batch), cell.in_shardings)
+            with torch.no_grad():
+                scores, ms = timed_calls(lambda: cell.fn(*args))
+                with uncounted():
+                    want = tt.serve_scores(params, batch, FULL)
+            err = float((scores - want).abs().max())
+            check(scores.shape == want.shape and err <= SCORE_TOL,
+                  f"{key}: scores {tuple(scores.shape)}, {err} from the unsharded scores")
+            result = {"out_shape": list(scores.shape), "max_abs_err_vs_plain": err}
+            del params, args, batch
+        ran["/".join(key)] = {"arg_bytes": arg_bytes(cell.args), "skip": cell.skip,
+                              "model_flops": cell.model_flops, "call_ms": ms,
+                              "peak_memory_bytes": torch.cuda.max_memory_allocated(), **result}
+        torch.cuda.empty_cache()
+    emit("cells_run", cells=ran, seed=SEED, card=smi)
 
 
 def launch_serve_phase(kind, smi) -> None:
@@ -2816,12 +3160,30 @@ def main() -> int:
         c.launches = 0
     lm_train_smoke_phase(dev, smi)
     gnn_smoke_phase(dev, smi)
-    lm_train_full_phase(dev, smi)
+    lm_train_ms = lm_train_full_phase(dev, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm-") as work:
         launch_train_phase(smi, work)
-    gnn_train_full_phase(dev, smi)
+    gcn_ms = gnn_train_full_phase(dev, smi)
     train_launches = {name: c.launches for name, c in counters.items()}
     check(not any(train_launches.values()), f"the training path launched {train_launches}")
+
+    # -- 21-23. the sharded forms and the registry's cells on a (1, 1) NCCL mesh ------
+    for c in counters.values():
+        c.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharding-") as work:
+        dist.init_process_group("nccl", init_method=f"file://{work}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            sharded_lm_phase(dev, mesh, smi, lm_train_ms)
+            halo_gcn_phase(dev, mesh, smi, gcn_ms)
+            cells_phase(dev, mesh, smi)
+        finally:
+            dist.destroy_process_group()
+    sharding_launches = {name: c.launches for name, c in counters.items()}
+    emit("sharding_kernels", launches=sharding_launches)
+    check(not any(sharding_launches.values()),
+          f"the sharded forms and cells launched {sharding_launches}")
 
     # -- 6c. durability: snapshots, the WAL, restore, engine checkpoints -------------
     # last, so that its files and host buffers cannot slow phases 7-9; counted
@@ -2853,6 +3215,7 @@ def main() -> int:
             "sharded_launches": sharded_launches[name],
             "lm_launches": lm_launches[name],
             "train_launches": train_launches[name],
+            "sharding_launches": sharding_launches[name],
             "max_abs_err": err[name],
             "ms": timed[name]["ms"],
             "plain_ms": timed[name]["plain_ms"],

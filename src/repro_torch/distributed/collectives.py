@@ -13,10 +13,14 @@ transposes for a replicated result:
 * ``psum``: all-reduce forward; backward the identity (each rank's cotangent
   already is the replicated one);
 * ``psum_scatter``: reduce-scatter along dim 0; backward an all-gather;
-* ``all_gather``: all-gather along dim 0; backward this rank's slice;
+* ``pmean``: ``psum`` over the group's size, backward the cotangent over
+  that size;
+* ``all_gather``: all-gather along a dimension; backward this rank's slice;
 * ``grad_psum``: the identity forward; backward an all-reduce — the sum
   over the ranks that hold a replicated parameter but see other rows of
-  the batch, which GSPMD inserts for the reference.
+  the batch, which GSPMD inserts for the reference;
+* ``ppermute``: each rank's tensor sent along a permutation of the group's
+  ranks; backward the cotangent sent along the inverse permutation.
 
 Tensors go to the collectives contiguous; outputs are allocated here.
 """
@@ -27,11 +31,14 @@ import torch
 import torch.distributed as dist
 
 
-def _gathered(x: torch.Tensor, group) -> torch.Tensor:
+def _gathered(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The ranks' blocks concatenated along ``dim``, contiguous (a gathered
+    weight then meets the same products as the whole one)."""
     n = dist.get_world_size(group)
+    x = x.movedim(dim, 0)
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-    return out
+    return out.movedim(0, dim).contiguous()
 
 
 def _scattered(x: torch.Tensor, group) -> torch.Tensor:
@@ -72,14 +79,14 @@ class _PsumScatter(torch.autograd.Function):
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.rows = x.shape[0]
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.rows = dim, x.shape[dim]
         ctx.index = dist.get_group_rank(group, dist.get_rank())
-        return _gathered(x, group)
+        return _gathered(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(0, ctx.index * ctx.rows, ctx.rows), None
+        return g.narrow(ctx.dim, ctx.index * ctx.rows, ctx.rows), None, None
 
 
 class _GradPsum(torch.autograd.Function):
@@ -93,9 +100,59 @@ class _GradPsum(torch.autograd.Function):
         return _summed(g, ctx.group), None
 
 
+def _permuted(x: torch.Tensor, group, perm, tag: int) -> torch.Tensor:
+    """Send ``x`` to the rank that ``perm`` maps this one to and receive from
+    the rank that maps to this one (group ranks; a rank that receives from
+    nobody gets zeros, as JAX's ``ppermute`` gives it).  A pair that maps a
+    rank to itself is a local copy: nothing is sent to self."""
+    me = dist.get_group_rank(group, dist.get_rank())
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    if dst and dst[0] != me:
+        ops.append(dist.P2POp(dist.isend, x, dist.get_global_rank(group, dst[0]), group,
+                              tag))
+    if src and src[0] == me:
+        out.copy_(x)
+    elif src:
+        ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(group, src[0]), group,
+                              tag))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return out
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, perm, tag):
+        ctx.group, ctx.tag = group, tag
+        ctx.inverse = [(d, s) for s, d in perm]
+        return _permuted(x, group, perm, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permuted(g, ctx.group, ctx.inverse, ctx.tag), None, None, None
+
+
 def psum(x: torch.Tensor, group) -> torch.Tensor:
     """Sum over ``group``, replicated on every rank."""
     return _Psum.apply(x, group)
+
+
+def pmean(x: torch.Tensor, group) -> torch.Tensor:
+    """Mean over ``group``, replicated on every rank."""
+    return _Psum.apply(x, group) / dist.get_world_size(group)
+
+
+def ppermute(x: torch.Tensor, group, perm, tag: int = 0) -> torch.Tensor:
+    """``jax.lax.ppermute``: ``perm`` is a list of (source, destination)
+    group ranks; this rank gets the ``x`` of the rank that maps to it.
+    ``tag`` tells apart the messages of exchanges that run back to back
+    between the same two ranks."""
+    return _Ppermute.apply(x, group, [tuple(p) for p in perm], tag)
 
 
 def psum_scatter(x: torch.Tensor, group) -> torch.Tensor:
@@ -103,9 +160,9 @@ def psum_scatter(x: torch.Tensor, group) -> torch.Tensor:
     return _PsumScatter.apply(x, group)
 
 
-def all_gather(x: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along dim 0 in group-rank order."""
-    return _AllGather.apply(x, group)
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in group-rank order."""
+    return _AllGather.apply(x, group, dim)
 
 
 def grad_psum(x: torch.Tensor, group) -> torch.Tensor:

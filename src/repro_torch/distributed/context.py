@@ -1,5 +1,11 @@
 """Mesh context: lets deeply-nested layers opt into explicit collective
-regions without threading the mesh through every config."""
+regions without threading the mesh through every config.
+
+``mesh_context`` selects the explicit expert-parallel MoE.  ``data_group``
+is set by the sharded train step (``train.step.make_sharded_train_step``)
+around its forward and backward: each rank then holds one data block of
+the batch, and the dense MoE takes its load-balance statistics over the
+whole batch, as the reference's GSPMD step does."""
 
 from __future__ import annotations
 
@@ -7,6 +13,7 @@ import contextlib
 
 _MESH = None
 _DP_AXES = ("data",)
+_DATA_GROUP = None
 
 
 def get_mesh():
@@ -15,6 +22,10 @@ def get_mesh():
 
 def get_dp_axes():
     return _DP_AXES
+
+
+def get_data_group():
+    return _DATA_GROUP
 
 
 @contextlib.contextmanager
@@ -26,3 +37,14 @@ def mesh_context(mesh, dp_axes=("data",)):
         yield
     finally:
         _MESH, _DP_AXES = old, old_dp
+
+
+@contextlib.contextmanager
+def data_group(group):
+    global _DATA_GROUP
+    old = _DATA_GROUP
+    _DATA_GROUP = group
+    try:
+        yield
+    finally:
+        _DATA_GROUP = old

@@ -75,8 +75,17 @@ def axis_index(mesh: DeviceMesh, axes) -> int:
     return idx
 
 
-def dp_axes_of(mesh: DeviceMesh) -> tuple[str, ...]:
-    return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+def axis_sizes(mesh) -> dict[str, int]:
+    """``{axis: size}`` of a ``DeviceMesh``, or of a plain mapping that
+    stands for one (the rules read only the sizes, so they can be checked
+    at a production mesh's sizes without its ranks)."""
+    if isinstance(mesh, DeviceMesh):
+        return {a: mesh.size(i) for i, a in enumerate(mesh.mesh_dim_names)}
+    return dict(mesh)
+
+
+def dp_axes_of(mesh) -> tuple[str, ...]:
+    return tuple(a for a in axis_sizes(mesh) if a in ("pod", "data"))
 
 
 def shard_rows(x: torch.Tensor, mesh: DeviceMesh, axes, dim: int = 0) -> torch.Tensor:

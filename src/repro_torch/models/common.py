@@ -13,6 +13,22 @@ import math
 import torch
 
 
+def new_generator(device, seed: int = 0) -> torch.Generator:
+    """A fresh generator on ``device`` seeded with ``seed`` (on the CPU for
+    ``meta``, where nothing is drawn: see ``randn``)."""
+    device = torch.device(device)
+    return torch.Generator(device="cpu" if device.type == "meta" else device).manual_seed(seed)
+
+
+def randn(shape, generator: torch.Generator, dtype: torch.dtype = torch.float32,
+          device=None) -> torch.Tensor:
+    """Standard normal draws from ``generator``; on ``meta`` the shape alone
+    (the registry's cells take their arguments as meta tensors)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+
+
 def dense_init(
     generator: torch.Generator,
     d_in: int,
@@ -22,7 +38,7 @@ def dense_init(
     device=None,
 ) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=generator, dtype=dtype, device=device)
+    w = randn((d_in, d_out), generator, dtype, device)
     return w.mul_(scale)
 
 

@@ -1,16 +1,17 @@
 """GCN (Kipf & Welling, arXiv:1609.02907): H' = σ(D̂^-½ Â D̂^-½ H W).
 
 The normalized SpMM runs on the relational substrate (gather → weighted
-segment-sum).  The reference's halo-exchange form (``forward_halo``,
-``loss_halo``: ``shard_map`` with ``ppermute``) waits for the port's sharding
-rules (ROADMAP A11).
+segment-sum).  ``forward_halo``/``loss_halo`` are the reference's
+halo-exchange partitioned form over the ranks of a mesh.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import dense_init
+from repro_torch.distributed.collectives import grad_psum, ppermute, psum
+from repro_torch.distributed.mesh import axes_group, axis_size
+from repro_torch.models.common import dense_init, new_generator
 from repro_torch.models.gnn.common import (
     GNNConfig, GraphBatch, edge_mask, masked_ids, resolve_device,
 )
@@ -22,7 +23,7 @@ def init_params(cfg: GNNConfig, generator: torch.Generator | None = None, device
     seeded with 0 when None); ``device=None`` means CUDA."""
     device = resolve_device(device, "GCN")
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
+        generator = new_generator(device)
     dims = [cfg.d_in] + [cfg.d_hidden] * (cfg.n_layers - 1) + [cfg.d_out]
     return {f"w{i}": dense_init(generator, dims[i], dims[i + 1], device=device)
             for i in range(len(dims) - 1)}
@@ -53,10 +54,77 @@ def forward(params, g: GraphBatch, cfg: GNNConfig):
     return x
 
 
-def loss(params, g: GraphBatch, cfg: GNNConfig):
-    logits = forward(params, g, cfg).float()
-    labels = g.labels.long()
+def _xent_terms(logits, labels):
+    """(summed cross-entropy of the labelled nodes, their count)."""
+    logits, labels = logits.float(), labels.long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(1, labels.clamp_min(0)[:, None])[:, 0]
     m = (labels >= 0).float()
-    return ((logz - gold) * m).sum() / m.sum().clamp_min(1.0)
+    return ((logz - gold) * m).sum(), m.sum()
+
+
+def loss(params, g: GraphBatch, cfg: GNNConfig):
+    total, count = _xent_terms(forward(params, g, cfg), g.labels)
+    return total / count.clamp_min(1.0)
+
+
+# --------------------------------------------------------------------------
+# halo-exchange partitioned GCN
+# --------------------------------------------------------------------------
+
+
+def forward_halo(params, g: GraphBatch, cfg: GNNConfig, mesh, dp_axes, halo: int,
+                 compute_dtype=None):
+    """Spatially-partitioned GCN: nodes block-partitioned over the DP axes;
+    each rank exchanges only a fixed-width HALO of boundary rows with its
+    ring neighbours along ``dp_axes[-1]`` (two ``ppermute``s) instead of the
+    whole node array's gradient all-reduce.
+
+    ``g`` is this rank's part, locally indexed (the reference's contract):
+    ``node_feat`` its block of N_loc nodes, ``receivers`` ∈ [0, N_loc),
+    ``senders`` ∈ [0, N_loc + 2·halo) where [0, halo) = previous rank's
+    tail, [halo, halo+N_loc) = local block, [halo+N_loc, …) = next rank's
+    head; -1 pads.  Valid when the partitioner bounds edge cuts by ``halo``.
+    Both ends of an edge are normalised by the receiver's degree, which is
+    ``forward``'s symmetric normalisation where every edge joins nodes of
+    equal degree (a ring lattice).  Returns this rank's logits [N_loc, C]."""
+    ring = axes_group(mesh, dp_axes[-1])
+    size = axis_size(mesh, dp_axes[-1])
+    perm_fwd = [(i, (i + 1) % size) for i in range(size)]
+    perm_bwd = [(d, s) for s, d in perm_fwd]
+    # replicated weights applied to this rank's nodes: gradients sum over DP
+    data = axes_group(mesh, dp_axes)
+    ws = [grad_psum(params[f"w{i}"], data) for i in range(len(params))]
+    h = g.node_feat
+    if compute_dtype is not None:
+        h = h.to(compute_dtype)
+        ws = [w.to(compute_dtype) for w in ws]
+    n_loc = h.shape[0]
+    valid = edge_mask(g.senders)
+    snd, rcv = masked_ids(g.senders, valid), masked_ids(g.receivers, valid)
+    deg = torch.zeros(n_loc, device=h.device).index_add_(0, rcv, valid.float()) + 1.0
+    inv = torch.rsqrt(deg)
+    for i, w in enumerate(ws):
+        h = h @ w
+        tail = ppermute(h[-halo:], ring, perm_fwd, tag=0)    # prev → me
+        head = ppermute(h[:halo], ring, perm_bwd, tag=1)     # next → me
+        hx = torch.cat([tail, h, head])
+        msg = torch.where(valid[:, None], hx[snd] * inv[rcv][:, None], 0.0)
+        agg = torch.zeros((n_loc, h.shape[1]), dtype=h.dtype, device=h.device).index_add_(
+            0, rcv, msg.to(h.dtype))
+        h = agg * inv[:, None] + h * (inv * inv)[:, None]
+        if i < len(ws) - 1:
+            h = torch.relu(h)
+    return h
+
+
+def loss_halo(params, g: GraphBatch, cfg: GNNConfig, mesh=None, dp_axes=("data",),
+              halo: int = 512, compute_dtype=None):
+    """The mean cross-entropy over every rank's labelled nodes, on every
+    rank, with the whole gradient of the replicated weights."""
+    if mesh is None:
+        raise ValueError("loss_halo: pass the mesh whose ranks hold the node blocks")
+    logits = forward_halo(params, g, cfg, mesh, dp_axes, halo, compute_dtype)
+    total, count = _xent_terms(logits, g.labels)
+    data = axes_group(mesh, dp_axes)
+    return psum(total, data) / psum(count, data).clamp_min(1.0)

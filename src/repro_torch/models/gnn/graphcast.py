@@ -11,7 +11,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import layernorm, layernorm_init, mlp_apply, mlp_init
+from repro_torch.models.common import (
+    layernorm, layernorm_init, mlp_apply, mlp_init, new_generator,
+)
 from repro_torch.models.gnn.common import (
     GNNConfig, GraphBatch, edge_mask, masked_ids, resolve_device, scatter_edges,
 )
@@ -31,7 +33,7 @@ def init_params(cfg: GNNConfig, generator: torch.Generator | None = None, device
     order from ``generator``; ``device=None`` means CUDA."""
     device = resolve_device(device, "GraphCast")
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
+        generator = new_generator(device)
     d = cfg.d_hidden
     params = {
         "grid_enc": _block_init(generator, cfg.d_in, d, device),

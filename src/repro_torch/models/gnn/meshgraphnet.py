@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import layernorm, layernorm_init, mlp_apply, mlp_init
+from repro_torch.models.common import (
+    layernorm, layernorm_init, mlp_apply, mlp_init, new_generator,
+)
 from repro_torch.models.gnn.common import (
     GNNConfig, GraphBatch, edge_mask, masked_ids, resolve_device, scatter_edges,
 )
@@ -30,7 +32,7 @@ def init_params(cfg: GNNConfig, generator: torch.Generator | None = None, device
     that order from ``generator``; ``device=None`` means CUDA."""
     device = resolve_device(device, "MeshGraphNet")
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
+        generator = new_generator(device)
     d = cfg.d_hidden
     params = {
         "node_enc": _block_init(generator, cfg.d_in, d, cfg.mlp_layers, device),

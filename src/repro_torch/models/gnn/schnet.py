@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from repro_torch.models.common import dense_init, mlp_apply, mlp_init
+from repro_torch.models.common import dense_init, mlp_apply, mlp_init, new_generator
 from repro_torch.models.gnn.common import (
     GNNConfig, GraphBatch, edge_mask, graph_pool, masked_ids, resolve_device,
 )
@@ -31,7 +31,7 @@ def init_params(cfg: GNNConfig, generator: torch.Generator | None = None, device
     that order from ``generator``; ``device=None`` means CUDA."""
     device = resolve_device(device, "SchNet")
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
+        generator = new_generator(device)
     d = cfg.d_hidden
     params = {
         "embed": dense_init(generator, cfg.d_in, d, device=device),

@@ -30,7 +30,7 @@ from torch.utils._pytree import tree_map
 
 from repro_torch.distributed.collectives import all_gather, grad_psum, psum, psum_scatter
 from repro_torch.distributed.mesh import axes_group, axis_index, shard_rows
-from repro_torch.models.common import mlp_apply, mlp_init
+from repro_torch.models.common import mlp_apply, mlp_init, new_generator, randn
 from repro_torch.relational.embedding import embedding_bag, sampled_softmax_loss
 
 
@@ -66,12 +66,12 @@ def init_params(cfg: RecsysConfig, generator: torch.Generator | None = None,
             'available; pass device="cpu" to run on the CPU'
         )
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
+        generator = new_generator(device)
     dtype = getattr(torch, cfg.dtype)
     d = cfg.embed_dim
 
     def table(vocab):
-        return torch.randn((vocab, d), generator=generator, dtype=dtype, device=device).mul_(0.01)
+        return randn((vocab, d), generator, dtype, device).mul_(0.01)
 
     user_table, item_table = table(cfg.user_vocab), table(cfg.item_vocab)
     return {

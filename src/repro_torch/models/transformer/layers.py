@@ -15,7 +15,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.context import get_mesh
+from repro_torch.distributed.collectives import grad_psum, pmean, psum
+from repro_torch.distributed.context import get_data_group, get_dp_axes, get_mesh
+from repro_torch.distributed.mesh import axes_group, axis_index, axis_size
 from repro_torch.models.common import dense_init, rmsnorm, rmsnorm_init, rope
 from repro_torch.models.transformer.config import TransformerConfig
 
@@ -290,13 +292,13 @@ def moe_apply(p, x, cfg: TransformerConfig):
     probabilities.  Reading the segment sizes costs one host
     synchronisation.  Returns (out, Switch-style load-balance aux loss).
 
-    The reference's expert-parallel form (``_moe_apply_ep``) runs when a
-    mesh is active; the port has no sharding rules for it yet (ROADMAP
-    A11), so an active mesh raises rather than running dense."""
+    Under an active mesh (``distributed.mesh_context``) the explicit
+    expert-parallel form runs instead (``_moe_apply_ep``).  Inside the
+    sharded train step (``distributed.context.data_group``) each rank holds
+    a data block of the batch, and the aux loss takes the expert densities
+    and router means of the whole batch, as the reference's GSPMD step."""
     if get_mesh() is not None and cfg.n_experts > 1:
-        raise NotImplementedError(
-            "moe_apply under a mesh needs the expert-parallel form, which waits for "
-            "the port's sharding rules (ROADMAP A11)")
+        return _moe_apply_ep(p, x, cfg)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     xt = x.reshape(-1, d)
@@ -331,5 +333,79 @@ def moe_apply(p, x, cfg: TransformerConfig):
         out = out + glu_apply(p["shared"], xt, cfg.activation)
 
     density = group_sizes.float() / (t * k)                   # mean of the one-hot choices
-    aux = cfg.router_aux_coef * e * torch.sum(density * probs.mean(0)) * k
+    router_mean = probs.mean(0)
+    group = get_data_group()
+    if group is not None:
+        density, router_mean = pmean(density, group), pmean(router_mean, group)
+    aux = cfg.router_aux_coef * e * torch.sum(density * router_mean) * k
+    if group is not None:
+        # the same aux on every data rank, added to each rank's own loss: the
+        # data-parallel mean of those losses hands each copy 1/n of its cotangent
+        aux = grad_psum(aux, group)
+    return out.reshape(b, s, d), aux
+
+
+def _moe_apply_ep(p, x, cfg: TransformerConfig):
+    """Explicit expert-parallel MoE: experts sharded over ``model``; each
+    rank computes ONLY its local experts' contributions to its data block
+    of the tokens (replicated over ``model``), then one psum over ``model``
+    in the compute dtype combines them.
+
+    ``w_gate``/``w_up``/``w_down`` are this rank's ``e // tp`` experts when
+    ``distributed.place`` cut them, or the whole stack, which is narrowed
+    here.  Assignments to other ranks' experts go to a drop bin of weight
+    zero.  The aux loss is this rank's, ``pmean``-ed over ``model`` and then
+    over the last DP axis only, as the reference's: at dp > 1 that mean of
+    per-block products differs from the dense form's global aux."""
+    mesh, dp = get_mesh(), get_dp_axes()
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    tp = axis_size(mesh, "model")
+    if e % tp:
+        raise ValueError(f"expert parallelism: {e} experts do not split over {tp} ranks")
+    e_loc = e // tp
+    lo = axis_index(mesh, "model") * e_loc
+    model = axes_group(mesh, "model")
+    experts = [p[w] if p[w].shape[0] == e_loc else p[w].narrow(0, lo, e_loc)
+               for w in ("w_gate", "w_up", "w_down")]
+    # the tokens and the router are the same on every model rank, and each
+    # rank uses them for its own experts only: their gradients sum over model
+    xt = grad_psum(x, model).reshape(-1, d)
+    router = grad_psum(p["router"], model)
+    t = xt.shape[0]
+
+    probs = torch.softmax(xt.float() @ router, dim=-1)
+    top_p, top_i = torch.topk(probs, k, dim=-1)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    local_e = top_i - lo
+    mine = (local_e >= 0) & (local_e < e_loc)
+    flat_e = torch.where(mine, local_e, e_loc).reshape(-1)    # e_loc = drop bin
+    order = torch.argsort(flat_e, stable=True)
+    group_sizes = torch.zeros(e_loc + 1, dtype=flat_e.dtype, device=x.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    sizes = group_sizes.tolist()[:e_loc]
+    if ROUTED is not None:
+        ROUTED.append(sum(1 for n in sizes if n))
+    kept = order[:sum(sizes)]                                  # the drop bin sorts last
+
+    act = _act(cfg.activation)
+    xs = xt[kept // k]
+    h = act(_grouped_matmul(xs, experts[0], sizes)) * _grouped_matmul(xs, experts[1], sizes)
+    ys = _grouped_matmul(h, experts[2], sizes)
+
+    w = top_p.reshape(-1)[kept].to(ys.dtype)
+    weighted = ys.new_zeros((t * k, d))
+    weighted[kept] = ys * w[:, None]
+    out = psum(weighted.reshape(t, k, d).sum(dim=1), model)   # the ONE combine
+
+    density = torch.zeros(e, device=x.device).index_add_(
+        0, top_i.reshape(-1), torch.ones(t * k, device=x.device)) / (t * k)
+    aux_l = cfg.router_aux_coef * e * torch.sum(density * probs.mean(0)) * k
+    data = axes_group(mesh, dp[-1])
+    # replicated over the last DP axis; each data rank adds it to its own loss
+    aux = grad_psum(pmean(pmean(aux_l, model), data), data)
+
+    if cfg.n_shared_experts:
+        out = out + glu_apply(p["shared"], x.reshape(-1, d), cfg.activation)
     return out.reshape(b, s, d), aux

@@ -20,7 +20,9 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.common import rmsnorm, rmsnorm_init, softmax_xent
+from repro_torch.models.common import (
+    new_generator, randn, rmsnorm, rmsnorm_init, softmax_xent,
+)
 from repro_torch.models.transformer.config import TransformerConfig
 from repro_torch.models.transformer.layers import (
     _causal,
@@ -69,16 +71,14 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None
             "repro_torch's transformer runs on CUDA by default and no CUDA device is "
             'available; pass device="cpu" to run on the CPU')
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
+        generator = new_generator(device)
     dt = cfg.params_dtype
     params = {
-        "embed": torch.randn((cfg.vocab, cfg.d_model), generator=generator, dtype=dt,
-                             device=device).mul_(0.02),
+        "embed": randn((cfg.vocab, cfg.d_model), generator, dt, device).mul_(0.02),
         "final_norm": rmsnorm_init(cfg.d_model, dt, device=device),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = torch.randn((cfg.d_model, cfg.vocab), generator=generator,
-                                        dtype=dt, device=device).mul_(0.02)
+        params["unembed"] = randn((cfg.d_model, cfg.vocab), generator, dt, device).mul_(0.02)
     if cfg.n_dense_prefix:
         params["prefix"] = [_layer_init(generator, cfg, moe_layer=False, device=device)
                             for _ in range(cfg.n_dense_prefix)]

@@ -35,9 +35,12 @@ def adamw_init(params):
     }
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    leaves = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves))
+def clip_by_global_norm(grads, max_norm: float, gnorm=None):
+    """``grads`` scaled to a global norm of at most ``max_norm``; ``gnorm``,
+    when given, is that norm (a sharded step computes it over its ranks)."""
+    if gnorm is None:
+        leaves = tree_leaves(grads)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), gnorm
 
@@ -53,11 +56,14 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     max_grad_norm: float = 1.0,
+    gnorm=None,
 ):
     """One step: (params, new state, the global norm before clipping).
     ``params``, ``mu`` and ``nu`` are updated in place; ``lr`` is a number
-    or a 0-d tensor (``cosine_schedule``), read once with the count."""
-    grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+    or a 0-d tensor (``cosine_schedule``), read once with the count.
+    ``gnorm``: the gradients' global norm where ``grads`` are blocks of
+    sharded leaves (``train.step.make_sharded_train_step``)."""
+    grads, gnorm = clip_by_global_norm(grads, max_grad_norm, gnorm)
     count = state["count"] + 1
     # the bias corrections and the learning rate as numbers (one read of the
     # count), so each leaf's update is in-place arithmetic with one temporary:

@@ -428,13 +428,12 @@ def test_cli_runs_as_a_module_on_the_host():
 
 # -- the packages' public names ------------------------------------------------
 
-#: reference names whose modules are not ported yet (ROADMAP.md item A11: the
-#: sharding rules), and the distributed layer's JAX-only names: ``shard_map``
-#: (each rank is a process that runs its shard's code) and ``collective_bytes``
-#: (it parses XLA's HLO)
+#: the distributed layer's JAX-only names, which have no counterpart:
+#: ``shard_map`` (each rank is a process that runs its shard's code) and
+#: ``collective_bytes`` (it parses XLA's HLO; the port's sharded steps count
+#: their own bytes)
 UNPORTED = {
-    "distributed": {"param_sharding", "batch_sharding", "lm_param_spec",
-                    "shard_map", "collective_bytes"},
+    "distributed": {"shard_map", "collective_bytes"},
 }
 
 

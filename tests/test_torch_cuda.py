@@ -775,3 +775,113 @@ def test_launch_train_runs_on_the_card_by_default(cuda, tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     got = json.loads(proc.stdout)
     assert got["restarts"] == 0 and got["steps"] == 2 and np.isfinite(got["final_loss"])
+
+
+# -- the sharded forms on one NCCL rank --------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-v2-lite-16b"])
+def test_ep_moe_on_the_card_matches_dense(nccl_mesh, arch):
+    """At tp = 1 the expert-parallel form routes as the dense dispatch: the
+    forward's logits and aux, and the sharded step's loss and gradients
+    under ``mesh_context``, within 1e-5 of the plain ones (SMOKE, float32)."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.distributed import gather, mesh_context, param_sharding, place
+    from repro_torch.models.transformer import layers as tl
+    from repro_torch.train.step import ep_local, sharded_value_and_grad, value_and_grad
+
+    cfg = lm_registry.arch_config(arch, smoke=True)
+    dev = torch.device("cuda")
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in TokenStream(cfg.vocab, 2, 16).batch(0).items()}
+    calls = []
+    ep = tl._moe_apply_ep
+
+    def counted(*args):
+        calls.append(1)
+        return ep(*args)
+
+    tl._moe_apply_ep = counted
+    try:
+        with torch.no_grad():
+            want, want_aux = tf.forward(params, batch["tokens"], cfg)
+            with mesh_context(nccl_mesh, ("data",)):
+                got, got_aux = tf.forward(params, batch["tokens"], cfg)
+        assert calls and _rel(got.cpu(), want.cpu()) <= 1e-5
+        assert _rel(got_aux.cpu(), want_aux.cpu()) <= 1e-5
+        sh = param_sharding(params, nccl_mesh)
+        want_loss, want_g = value_and_grad(tf.lm_loss, params, batch, cfg, remat=True)
+        with mesh_context(nccl_mesh, ("data",)):
+            loss, grads = sharded_value_and_grad(tf.lm_loss, place(params, sh), batch, cfg,
+                                                 nccl_mesh, sh, ep_local, remat=True)
+    finally:
+        tl._moe_apply_ep = ep
+    assert _rel(loss.cpu(), want_loss.cpu()) <= 1e-5
+    for a, b in zip(tree_leaves(gather(grads, sh)), tree_leaves(want_g)):
+        assert _rel(a.cpu(), b.cpu()) <= 1e-5
+
+
+def test_halo_gcn_on_one_shard_on_the_card_matches_gcn_loss(nccl_mesh):
+    """``loss_halo`` on a ring of one (senders offset by ``halo``) over a
+    ring lattice equals ``gcn.loss``, value and gradients, within 1e-5."""
+    from repro_torch.data.graphs import grid_mesh_graph
+    from repro_torch.models.gnn import GraphBatch, gcn
+    from repro_torch.train.step import value_and_grad
+
+    halo, n, k = 8, 300, 4
+    dev = torch.device("cuda")
+    cfg = lm_registry.arch_config("gcn-cora", smoke=True)
+    s, r = (torch.as_tensor(a, device=dev) for a in grid_mesh_graph(n, k * n))
+    pad = torch.full((13,), -1, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feats = torch.randn((n, cfg.d_in), generator=gen, device=dev)
+    labels = torch.randint(-1, cfg.d_out, (n,), generator=gen, device=dev, dtype=torch.int32)
+    plain = GraphBatch(feats, torch.cat([s, pad]), torch.cat([r, pad]), None, None, None, labels)
+    local = plain._replace(senders=torch.cat([s + halo, pad]))
+    params = gcn.init_params(cfg, gen, device=dev)
+    want, want_g = value_and_grad(gcn.loss, params, plain, cfg)
+    got, got_g = value_and_grad(gcn.loss_halo, params, local, cfg, mesh=nccl_mesh, halo=halo)
+    assert got.is_cuda and _rel(got.cpu(), want.cpu()) <= 1e-5
+    for key in params:
+        assert _rel(got_g[key].cpu(), want_g[key].cpu()) <= 1e-5
+
+
+def test_cells_build_on_the_card_mesh_without_allocating(nccl_mesh):
+    """Every cell on the (1, 1) NCCL mesh: meta arguments, nothing allocated
+    on the card; the smallest GNN cell's step runs and equals the plain step."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.distributed import place
+    from repro_torch.models.gnn import GraphBatch, gcn
+    from repro_torch.train import init_train_state, make_train_step
+
+    before = torch.cuda.memory_allocated()
+    cells = {key: lm_registry.build_cell(*key, nccl_mesh) for key in lm_registry.all_cells()}
+    assert torch.cuda.memory_allocated() == before
+    assert len(cells) == len(lm_registry.all_cells())
+    assert all(x.device.type == "meta" for c in cells.values() for x in tree_leaves(c.args)
+               if x is not None)
+    cell = cells["gcn-cora", "full_graph_sm"]
+    state_sds, g_sds = cell.args
+    cfg = dataclasses.replace(lm_registry.arch_config("gcn-cora"),
+                              d_in=g_sds.node_feat.shape[1])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n, e = g_sds.node_feat.shape[0], g_sds.senders.shape[0]
+    snd = torch.randint(0, n, (e,), generator=gen, device=dev, dtype=torch.int32)
+    g = GraphBatch(torch.randn((n, cfg.d_in), generator=gen, device=dev), snd,
+                   torch.randint(0, n, (e,), generator=gen, device=dev, dtype=torch.int32),
+                   None, None, None,
+                   torch.randint(0, cfg.d_out, (n,), generator=gen, device=dev,
+                                 dtype=torch.int32))
+    params = gcn.init_params(cfg, gen, device=dev)
+    sharded = place(init_train_state(tree_map(torch.clone, params)), cell.in_shardings[0])
+    plain = init_train_state(tree_map(torch.clone, params))
+    sharded, got = cell.fn(sharded, place(g, cell.in_shardings[1]))
+    plain, want = make_train_step(gcn.loss, cfg)(plain, g)
+    assert _rel(got["loss"].cpu(), want["loss"].cpu()) <= 1e-5
+    for key in params:
+        assert _rel(sharded.params[key].cpu(), plain.params[key].cpu()) <= 1e-5

@@ -49,7 +49,8 @@ def test_port_files_found():
                    "relational/sampler.py", "models/gnn/__init__.py", "models/gnn/common.py",
                    "models/gnn/gcn.py", "models/gnn/meshgraphnet.py", "models/gnn/schnet.py",
                    "models/gnn/graphcast.py", "configs/gcn_cora.py", "configs/graphcast.py",
-                   "configs/meshgraphnet.py", "configs/schnet.py"):
+                   "configs/meshgraphnet.py", "configs/schnet.py", "distributed/sharding.py",
+                   "launch/mesh.py"):
         assert f"repro_torch/{module}" in names
 
 
@@ -77,9 +78,12 @@ def test_imports_with_jax_and_repro_blocked():
         "import repro_torch.models.transformer, repro_torch.train.serve, repro_torch.launch.serve\n"
         "import repro_torch.configs.registry, repro_torch.data.tokens\n"
         "import repro_torch.models.gnn, repro_torch.relational.sampler\n"
+        "import repro_torch.distributed.sharding, repro_torch.launch.mesh\n"
         "from repro_torch.configs import registry\n"
         "for arch in registry.ALL_ARCHS:\n"
         "    registry.arch_config(arch)\n"
+        "for arch, shape in registry.all_cells():\n"
+        "    registry.build_cell(arch, shape, {'data': 1, 'model': 1})\n"
         "print('ok')\n"
     )
     out = subprocess.run(

@@ -214,11 +214,18 @@ def test_layer_views_are_the_stacked_layers():
         assert all(torch.equal(g, w) for g, w in zip(tree_leaves(view), want, strict=True))
 
 
-def test_moe_apply_under_a_mesh_raises():
+def test_moe_apply_under_a_mesh_raises(monkeypatch):
+    """Under a mesh ``moe_apply`` runs the expert-parallel form, never the
+    dense dispatch: a mesh that is no process grid raises rather than
+    falling back (``test_torch_distributed.py`` holds the form itself)."""
     ref_cfg, cfg = configs("granite-moe-1b-a400m")
     p = tf.init_params(cfg, device="cpu")
-    with mesh_context(object()), pytest.raises(NotImplementedError, match="A11"):
-        layers.moe_apply(model.layer_views(p)[0]["ffn"], torch.zeros(1, 2, cfg.d_model), cfg)
+    ffn, x = model.layer_views(p)[0]["ffn"], torch.zeros(1, 2, cfg.d_model)
+    with mesh_context(object()), pytest.raises(AttributeError):
+        layers.moe_apply(ffn, x, cfg)
+    monkeypatch.setattr(layers, "_moe_apply_ep", lambda *args: ("ep", args))
+    with mesh_context(object()):
+        assert layers.moe_apply(ffn, x, cfg) == ("ep", (ffn, x, cfg))
 
 
 @pytest.mark.parametrize("kv_heads, bq, bk", [(2, 4, 8), (4, 8, 4), (1, 16, 16)])

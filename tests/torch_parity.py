@@ -1,7 +1,8 @@
 """Shared helpers for the parity tests between ``repro`` and ``repro_torch``.
 
 Every comparison here is exact: the Datalog path is integer work, so the two
-packages must agree bit for bit.
+packages must agree bit for bit.  ``ring_lattice`` makes the halo GCN's
+partitioned input for both packages.
 """
 
 import numpy as np
@@ -150,3 +151,30 @@ class ServePair:
 
 def stratum_of(inst, pred):
     return next(s.index for s in inst.strat.strata if pred in s.preds)
+
+
+def ring_lattice(n: int, width: int, shards: int, halo: int, e_loc: int, rng):
+    """A ring lattice (each node's ``width`` successors and predecessors)
+    cut into ``shards`` blocks, each block's edges locally indexed as
+    ``forward_halo`` reads them (senders through the halo), -1 padded to
+    ``e_loc``; node features and labels drawn from ``rng``."""
+    n_loc = n // shards
+    offsets = [o for o in range(-width, width + 1) if o]
+    rcv_g = np.repeat(np.arange(n), len(offsets))
+    snd_g = (rcv_g + np.tile(offsets, n)) % n
+    senders, receivers = [], []
+    for s in range(shards):
+        lo = s * n_loc
+        keep = (rcv_g >= lo) & (rcv_g < lo + n_loc)
+        r, g = rcv_g[keep] - lo, snd_g[keep]
+        rel = (g - lo) % n                    # position after this block's start, on the ring
+        local = np.where(rel < n_loc, halo + rel,
+                         np.where(rel >= n - halo, rel - (n - halo), halo + rel))
+        assert ((rel < n_loc + halo) | (rel >= n - halo)).all()
+        pad = np.full(e_loc - len(r), -1)
+        senders.append(np.concatenate([local, pad]))
+        receivers.append(np.concatenate([r, pad]))
+    feats = rng.standard_normal((n, 12)).astype(np.float32)
+    labels = rng.integers(-1, 5, size=n).astype(np.int32)
+    return (feats, np.concatenate(senders).astype(np.int32),
+            np.concatenate(receivers).astype(np.int32), labels)
