@@ -80,20 +80,26 @@ Phases, one output line each:
    restored exactly, and the burst scenario through
    ``repro_torch.loadgen``);
 7. gather_sum — the gather-sum kernel against its plain version at
-   ``test_gather_sum_sweep``'s shapes (float32 within 1e-5, bfloat16 within
-   2e-2) and at the two-tower path's shapes (``idx int32[262144, 8]`` from
-   ``RecsysStream(seed=0)`` over the FULL user and item tables), with median
-   times of kernel, plain version and ``F.embedding_bag``, and the bound;
+   ``test_gather_sum_sweep``'s shapes and on repeat-heavy ids (one row
+   everywhere; more repeated rows than a tile's stage holds, in column
+   slices; a NaN bag among repeats), float32 within 1e-5, bfloat16 within
+   2e-2; and at the two-tower path's shapes over the FULL user and item
+   tables (``RecsysStream(seed=0)``'s batch of 262,144: every field of a
+   table in one call, ``idx [1048576, 8]`` and ``[524288, 8]``, and field 0
+   alone, ``[262144, 8]``), each with lookups, distinct rows, the share of
+   lookups that repeat a row, median times of kernel, plain version and
+   ``F.embedding_bag``, the bound and the kernel's share of it;
 8. recsys_serve — the two-tower model at ``two_tower_retrieval.FULL``
    (5e6 + 2e6 rows of 256 float32, TF32 off): ``serve_scores`` at batch 512
    (``serve_p99``, 50 requests: median and p99) and 262,144 (``serve_bulk``,
-   rows/s), 6 gather-sum launches per call, scores within 1e-4 of the same
-   model on the card with its bags made by the plain version, and where the
-   time goes;
+   rows/s), 2 gather-sum launches per call (one per table), scores within
+   1e-4 of the same model on the card with its bags made by the plain
+   version, and where the time goes;
 9. recsys_retrieval — a 1,000,000-item corpus embedded with ``item_tower``,
-   then ``retrieval_scores`` for one query at top_k = 100 (4 launches per
-   call), held against the plain-bag version: scores within 1e-4, indices
-   equal wherever neighbouring reference scores differ by more than 1e-4;
+   then ``retrieval_scores`` for one query at top_k = 100 (one launch per
+   call and per corpus chunk), held against the plain-bag version: scores
+   within 1e-4, indices equal wherever neighbouring reference scores differ
+   by more than 1e-4;
 10. sharded_tc — one NCCL rank (a ``file://`` store in a temporary
    directory) as a (1, 1) ``("data", "model")`` mesh: ``tc_fixpoint_sharded``
    at G10K in its three schedules (allgather and rows1d run ``bitmm`` on
@@ -179,11 +185,13 @@ Phases, one output line each:
 
 Then a ``kernels`` JSON line (``launches``: each kernel's count on its main
 path — TC and SG at G10K for ``bitmm`` and ``bitmm_fused_delta``, phases 8
-and 9 for ``gather_sum``; ``serve_launches``: the timed serving batches of
-phase 6b; ``durable_launches``: the durability path's own work in phase
-6c — writes through a durable server, restores with their replay, writes
-on restored instances, checkpointed and resumed engine runs — and not the
-from-scratch references or the live instances built to compare with;
+and 9 for ``gather_sum``, whose times are the item table's at the main
+path's shape, with every table and shape of phase 7 under ``tables``;
+``serve_launches``: the timed serving batches of phase 6b;
+``durable_launches``: the durability path's own work in phase 6c — writes
+through a durable server, restores with their replay, writes on restored
+instances, checkpointed and resumed engine runs — and not the from-scratch
+references or the live instances built to compare with;
 ``sharded_launches``: phase 10's three sharded fixpoints; ``lm_launches``:
 phases 14-16, ``train_launches``: phases 17-20 and ``sharding_launches``:
 phases 21-23, which must be 0, as no kernel of the repo lies on the LM or
@@ -229,6 +237,7 @@ BULK_BATCH, BULK_REPS = 262_144, 5
 CORPUS, TOP_K, QUERY_CALLS = 1_000_000, 100, 20
 GATHER_SWEEP = [(8, 3, 20, 128), (16, 7, 50, 256), (4, 1, 5, 384),   # test_gather_sum_sweep
                 (9, 5, 30, 99), (5, 40, 64, 36)]                      # the scalar path
+GATHER_REPEATS = ("one_id", "over_stage", "nan_among_repeats")       # repeat_case
 SCORE_TOL = 1e-4
 # bitmm shapes held bit for bit against the plain version: multiples of none of
 # the kernel's tiles (128 rows, 256 columns, 1024-bit K stages), or one past one
@@ -416,8 +425,45 @@ def device_profile(fn, calls: int) -> dict:
             "top_host_ms_and_count_per_call": top(host, "self_cpu_time_total")}
 
 
+def gather_stats(idx, table) -> dict:
+    """Lookups, distinct rows and the share of lookups that repeat a row of
+    ``idx`` over ``table``, and the least ms the card could take for the
+    gather-sum: the larger of its bytes (each distinct row read once, the ids
+    read and the output written once) at the memory rate and its adds at the
+    float32 rate."""
+    valid = idx[idx >= 0]
+    lookups, rows = valid.numel(), torch.unique(valid).numel()
+    elsize, d = table.element_size(), table.shape[1]
+    nbytes = rows * d * elsize + idx.numel() * 4 + idx.shape[0] * d * elsize
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = lookups * d / FP32_OPS_PER_S * 1e3
+    return {"lookups": lookups, "distinct_rows": rows,
+            "repeat_share": 1.0 - rows / max(lookups, 1),
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations"}
+
+
+def repeat_case(kind: str, rng):
+    """A repeat-heavy (idx, n, d) of the kernel's row stage: ``one_id`` (one
+    row in every slot, D off the 16-byte vector), ``over_stage`` (enough
+    bags for whole tiles of 128, each drawing its 1024 ids from 200 rows:
+    more repeated rows than the stage's 32, rows wider than the stage, so
+    column slices), ``nan_among_repeats`` (one row everywhere and a bag
+    holding an id past the table)."""
+    if kind == "over_stage":
+        return rng.integers(0, 200, size=(40_001, 8)).astype(np.int32), 300, 1024
+    idx = np.full((3001, 8), 7, dtype=np.int32)
+    idx[::5, 3] = -1
+    if kind == "one_id":
+        return idx, 50, 99
+    idx[17, 2] = 50                                       # past the table: a NaN bag
+    return idx, 50, 256
+
+
 def gather_sum_phase(dev, model, bulk) -> dict:
-    """Phase 7: the kernel against its plain version; times at the main path's shapes."""
+    """Phase 7: the kernel against its plain version on the sweep and the
+    repeat-heavy cases; times at the main path's shapes (every field of a
+    table as one call) and at field 0 alone (earlier runs' shape)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import gather_sum as kg
@@ -425,49 +471,55 @@ def gather_sum_phase(dev, model, bulk) -> dict:
 
     rng = np.random.default_rng(0)
     sweep_err = {"float32": 0.0, "bfloat16": 0.0}
-    for b, k, n, d in GATHER_SWEEP:
-        idx = torch.as_tensor(rng.integers(-1, n, size=(b, k)).astype(np.int32), device=dev)
-        x = torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32), device=dev)
+
+    def against_plain(idx, x, what):
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
             xt = x.to(dtype)
             e = float_err(kg.gather_sum(idx, xt), gather_sum_plain(idx, xt))
-            check(e <= tol, f"gather_sum {dtype} differs from plain by {e} at {(b, k, n, d)}")
+            check(e <= tol, f"gather_sum {dtype} differs from plain by {e} at {what}")
             key = str(dtype).removeprefix("torch.")
             sweep_err[key] = max(sweep_err[key], e)
+
+    for b, k, n, d in GATHER_SWEEP:
+        idx = torch.as_tensor(rng.integers(-1, n, size=(b, k)).astype(np.int32), device=dev)
+        x = torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32), device=dev)
+        against_plain(idx, x, (b, k, n, d))
         idx[0, 0] = n                                     # an id past the table: a NaN bag
         got = kg.gather_sum(idx, x)
         check(bool(got[0].isnan().all()) and float_err(got, gather_sum_plain(idx, x)) <= 1e-5,
               f"gather_sum out-of-range id at {(b, k, n, d)}")
+    for kind in GATHER_REPEATS:
+        idx_np, n, d = repeat_case(kind, rng)
+        idx = torch.as_tensor(idx_np, device=dev)
+        x = torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32), device=dev)
+        against_plain(idx, x, kind)
+        nan_bags = int(kg.gather_sum(idx, x).isnan().all(dim=1).sum())
+        check(nan_bags == int((idx >= n).any(dim=1).sum()), f"gather_sum NaN bags in {kind}")
 
     shapes = {}
-    for name, table, ids in (("user", model.user_table, bulk["user_ids"][:, 0]),
-                             ("item", model.item_table, bulk["item_ids"][:, 0])):
-        idx = torch.as_tensor(np.ascontiguousarray(ids), device=dev)
-        out = kg.gather_sum(idx, table)
-        err = float_err(out, gather_sum_plain(idx, table))
-        check(err <= 1e-5, f"gather_sum differs from plain by {err} on the {name} table")
-        safe, weight = idx.clamp_min(0), (idx >= 0).to(table.dtype)
-        lib = F.embedding_bag(safe, table, mode="sum", per_sample_weights=weight)
-        check(float_err(lib, out) <= 1e-5, "the library yardstick computes another function")
-        valid = idx[idx >= 0]
-        rows = torch.unique(valid).numel()
-        elsize = table.element_size()
-        nbytes = rows * table.shape[1] * elsize + idx.numel() * 4 + out.numel() * elsize
-        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ops = valid.numel() * table.shape[1] / FP32_OPS_PER_S * 1e3
-        shapes[name] = {
-            "idx": list(idx.shape), "table": list(table.shape), "distinct_rows": rows,
-            "max_abs_err": err,
-            "ms": time_ms(lambda: kg.gather_sum(idx, table)),
-            "plain_ms": time_ms(lambda: gather_sum_plain(idx, table)),
-            "library_ms": time_ms(
-                lambda: F.embedding_bag(safe, table, mode="sum", per_sample_weights=weight)),
-            "bound_ms": max(bound_bytes, bound_ops),
-            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-        }
-        del out, lib
-    emit("gather_sum", sweep_cases=len(GATHER_SWEEP) * 2, sweep_max_abs_err=sweep_err,
-         main_shape=shapes)
+    for name, table, ids in (("user", model.user_table, bulk["user_ids"]),
+                             ("item", model.item_table, bulk["item_ids"])):
+        for label, part in ((name, ids.reshape(-1, ids.shape[-1])),
+                            (f"{name}_field0", ids[:, 0])):
+            idx = torch.as_tensor(np.ascontiguousarray(part), device=dev)
+            out = kg.gather_sum(idx, table)
+            err = float_err(out, gather_sum_plain(idx, table))
+            check(err <= 1e-5, f"gather_sum differs from plain by {err} on {label}")
+            safe, weight = idx.clamp_min(0), (idx >= 0).to(table.dtype)
+            lib = F.embedding_bag(safe, table, mode="sum", per_sample_weights=weight)
+            check(float_err(lib, out) <= 1e-5, "the library yardstick computes another function")
+            del out, lib
+            stats = gather_stats(idx, table)
+            ms = time_ms(lambda: kg.gather_sum(idx, table))
+            shapes[label] = {
+                "idx": list(idx.shape), "table": list(table.shape), **stats,
+                "max_abs_err": err, "ms": ms, "share_of_bound": stats["bound_ms"] / ms,
+                "plain_ms": time_ms(lambda: gather_sum_plain(idx, table)),
+                "library_ms": time_ms(
+                    lambda: F.embedding_bag(safe, table, mode="sum", per_sample_weights=weight)),
+            }
+    emit("gather_sum", sweep_cases=2 * (len(GATHER_SWEEP) + len(GATHER_REPEATS)),
+         repeat_cases=list(GATHER_REPEATS), sweep_max_abs_err=sweep_err, main_shape=shapes)
     return shapes
 
 
@@ -523,7 +575,6 @@ def recsys_phases(dev, cfg, model, bulk_stream, bulk) -> int:
                 parts[name].append(ev[a].elapsed_time(ev[z]))
         return {f"{k}_ms": statistics.median(v) for k, v in parts.items()}
 
-    fields = cfg.user_fields + cfg.item_fields
     p99_stream = RecsysStream(cfg.user_vocab, cfg.item_vocab, cfg.user_fields,
                               cfg.item_fields, cfg.field_hots, cfg.n_dense_feat,
                               batch=P99_BATCH, seed=0)
@@ -547,7 +598,7 @@ def recsys_phases(dev, cfg, model, bulk_stream, bulk) -> int:
         bulk_s.append(time.perf_counter() - t0)
     serve_launches = kg.gather_sum.launches
     calls = P99_CALLS + BULK_REPS
-    check(serve_launches == fields * calls,
+    check(serve_launches == 2 * calls,          # one per table: all fields in one call
           f"serve_scores launched gather_sum {serve_launches} times in {calls} calls")
 
     err = 0.0
@@ -597,7 +648,7 @@ def recsys_phases(dev, cfg, model, bulk_stream, bulk) -> int:
         vals, idx = ask()
         q_lat.append((time.perf_counter() - t0) * 1e3)
     retrieval_launches = kg.gather_sum.launches
-    want = cfg.item_fields * len(chunks) + cfg.user_fields * (3 + QUERY_CALLS)
+    want = len(chunks) + 3 + QUERY_CALLS         # one per corpus chunk and per query
     check(retrieval_launches == want,
           f"retrieval launched gather_sum {retrieval_launches} times, expected {want}")
 
@@ -3202,7 +3253,13 @@ def main() -> int:
             "gather_sum.cu",
             "src/repro/kernels/gather_sum.py:49 (gather_sum_call, body _gather_sum_kernel)"),
     }
-    timed = {**main_shape["dense"], "gather_sum": gather_shapes["user"]}
+    # gather_sum: the item table at the main path's shape, with every table and
+    # shape of phase 7 beside it
+    timed = {**main_shape["dense"], "gather_sum": gather_shapes["item"]}
+    tables = {"gather_sum": {
+        label: {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                        "share_of_bound", "idx")}
+        for label, v in gather_shapes.items()}}
     print(json.dumps({"kernels": [
         {
             "name": name,
@@ -3222,6 +3279,7 @@ def main() -> int:
             "bound_ms": timed[name]["bound_ms"],
             "bound_by": timed[name]["bound_by"],
             "library_ms": timed[name]["library_ms"],
+            **({"tables": tables[name]} if name in tables else {}),
         }
         for name in sources
     ]}), flush=True)

@@ -9,6 +9,11 @@ A CUDA tensor launches the hand-written kernel on PyTorch's current stream
 (no synchronisation; the output allocated here with ``torch.empty``) or
 raises; a CPU tensor runs the plain version.  ``gather_sum.launches`` counts
 kernel launches.  The kernel has no backward: serving only.
+
+The kernel takes bags in tiles and fetches a row that repeats within a tile
+once, into shared memory (``csrc/gather_sum.cu``), so callers should hand it
+all their bags over one table in one call: the two-tower model passes every
+field of a batch as one ``[B·F, K]`` view.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gather_sum_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernel stages 8 idx rows per block in 48 KB of shared memory
+#: ids per bag at most: a bag's ids and their hash table must fit beside the
+#: row stage in one block's shared memory
 MAX_K = 1536
 
 
@@ -53,11 +59,16 @@ def _check(idx: torch.Tensor, x: torch.Tensor) -> None:
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("gather_sum")
+def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The kernel's library; ``defines`` such as ``("GS_TILE_BAGS=64",)`` build a
+    variant of its tile and stage constants (``tools/gather_sum_variants.py``
+    times them)."""
+    lib = _build.library("gather_sum", defines)
     vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.gather_sum_launch.argtypes = [vp, vp, vp, i64, i, i64, i, i, vp]
     lib.gather_sum_launch.restype = i
+    lib.gather_sum_plan.argtypes = [i64, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.gather_sum_plan.restype = i
     return lib
 
 

@@ -88,9 +88,14 @@ def init_params(cfg: RecsysConfig, generator: torch.Generator | None = None,
 
 
 def field_bags(table: torch.Tensor, ids: torch.Tensor) -> list[torch.Tensor]:
-    """One embedding bag per field of ``ids`` int32[B, F, K] → F × [B, D]."""
-    fields = ids.transpose(0, 1).contiguous()            # each field contiguous
-    return [embedding_bag(table, fields[f]) for f in range(fields.shape[0])]
+    """One embedding bag per field of ``ids`` int32[B, F, K] → F × [B, D].
+
+    All B·F bags go to ``embedding_bag`` as one [B·F, K] view (one kernel
+    launch per table, no copy); field f's bags are the strided view
+    ``out[:, f]``, the sums the reference's per-field loop computes."""
+    b, f, k = ids.shape
+    out = embedding_bag(table, ids.reshape(b * f, k))
+    return list(out.view(b, f, table.shape[1]).unbind(1))
 
 
 def user_head(params, bags: list[torch.Tensor], user_dense: torch.Tensor) -> torch.Tensor:

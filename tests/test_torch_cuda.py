@@ -225,7 +225,7 @@ def test_engine_on_cuda_matches_cpu(cuda, name):
 
 
 # (B, K, N, D): test_gather_sum_sweep's shapes, then D off the 16-byte vector
-# width (the scalar path), a bag longer than a warp, and a grid-stride run
+# width (the scalar path), a bag longer than a warp, and whole tiles of 128 bags
 GATHER_SHAPES = [(8, 3, 20, 128), (16, 7, 50, 256), (4, 1, 5, 384), (9, 5, 30, 99),
                  (5, 40, 64, 36), (70_000, 8, 1000, 64)]
 
@@ -262,6 +262,45 @@ def test_gather_sum_unaligned_rows_and_out_of_range_ids(cuda, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, equal_nan=True)
 
 
+def _repeat_heavy(kind, rng):
+    """(idx, n, d) of ids that repeat rows within the kernel's tiles."""
+    if kind == "one_id":                     # one row everywhere; D off the vector: plain stage
+        idx = np.full((3001, 8), 7, dtype=np.int32)
+        idx[::5, 3] = -1
+        return idx, 50, 99
+    if kind == "nan_among_repeats":          # a bag with an id past the table among repeats
+        idx = np.full((3001, 8), 7, dtype=np.int32)
+        idx[17, 2] = 50
+        return idx, 50, 256
+    if kind == "over_stage":                 # whole tiles of 128 bags drawing from 200 rows:
+        # more repeated rows than the stage's 32, rows wider than it (column slices)
+        return rng.integers(0, 200, size=(40_001, 8)).astype(np.int32), 300, 1024
+    # a Zipf(1) batch folded as the two-tower model folds its fields, 3 x 40,002 + 1
+    # bags: no multiple of a tile
+    p = 1.0 / np.arange(1, 5001)
+    idx = rng.choice(5000, size=(120_007, 8), p=p / p.sum()).astype(np.int32)
+    idx[rng.random(idx.shape) < 0.1] = -1
+    return idx, 5000, 256
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["one_id", "nan_among_repeats", "over_stage", "zipf_ragged"])
+def test_gather_sum_repeat_heavy_matches_plain(cuda, dtype, kind):
+    """Rows that repeat within a tile are summed from the shared-memory stage."""
+    rng = np.random.default_rng(1)
+    idx_np, n, d = _repeat_heavy(kind, rng)
+    idx = torch.as_tensor(idx_np, device=cuda)
+    x = torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32), device=cuda).to(dtype)
+    before = kg.gather_sum.launches
+    got = kg.gather_sum(idx, x)
+    assert kg.gather_sum.launches == before + 1
+    want = gather_sum_plain(idx, x)
+    assert torch.equal(got.isnan().all(dim=1), (idx >= n).any(dim=1))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, equal_nan=True)
+    torch.cuda.synchronize()
+
+
 def test_two_tower_on_cuda_matches_cpu(cuda):
     model = TwoTower(SMOKE, torch.Generator().manual_seed(1), device="cpu")
     gpu = TwoTower(SMOKE, device=cuda)
@@ -273,7 +312,7 @@ def test_two_tower_on_cuda_matches_cpu(cuda):
     gpu_b = {k: v.to(cuda) for k, v in cpu_b.items()}
     before = kg.gather_sum.launches
     got = gpu.serve_scores(gpu_b)
-    assert kg.gather_sum.launches == before + SMOKE.user_fields + SMOKE.item_fields
+    assert kg.gather_sum.launches == before + 2          # one per table, every field at once
     torch.testing.assert_close(got.cpu(), model.serve_scores(cpu_b), atol=1e-4, rtol=1e-4)
 
 

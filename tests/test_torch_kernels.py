@@ -232,7 +232,7 @@ def _bad_gather_calls():
                          ids=[f"bad{i}" for i in range(12)])
 def test_gather_sum_refuses_bad_arguments(match, call):
     """Checked before any dispatch, so the CUDA route refuses them too; the
-    tower hands each field over contiguous, never a strided view."""
+    tower hands each table's ids over as one contiguous [B·F, K] view."""
     with pytest.raises(ValueError, match=match):
         call()
     assert kg.gather_sum.launches == 0

@@ -290,6 +290,58 @@ def test_heads_on_plain_bags_equal_the_towers(pair):
                        model.user_tower(pb["user_ids"], pb["user_dense"]))
 
 
+def _zipf_field_ids(seed, b=64, f=3, k=8, n=40):
+    """Multi-hot ids drawn from Zipf(1) over ``n`` rows (most slots repeat a
+    row), a fifth of the slots padded and one id past the table (a NaN bag)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, n + 1)
+    ids = rng.choice(n, size=(b, f, k), p=p / p.sum()).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.2] = -1
+    ids[5, 1, 2] = n
+    return ids
+
+
+@pytest.mark.parametrize("case", ["smoke", "zipf"])
+def test_field_bags_fold_every_field_into_one_call(case, monkeypatch):
+    """``field_bags`` hands all B·F bags of a table to one gather-sum call as a
+    [B·F, K] view and returns field f as the strided view ``out[:, f]``: the
+    sums of the reference's per-field ``embedding_bag``."""
+    from repro_torch.models.recsys import two_tower
+
+    if case == "smoke":
+        cfg = configs.SMOKE
+        ids = RecsysStream(cfg.user_vocab, cfg.item_vocab, cfg.user_fields, cfg.item_fields,
+                           cfg.field_hots, cfg.n_dense_feat, batch=32, seed=3).batch(0)["user_ids"]
+        n, d = cfg.user_vocab, cfg.embed_dim
+    else:
+        ids, n, d = _zipf_field_ids(4), 40, 16
+    table = np.random.default_rng(5).standard_normal((n, d)).astype(np.float32)
+    calls = []
+    real = embedding.gather_sum
+    monkeypatch.setattr(embedding, "gather_sum",
+                        lambda i, t: calls.append(tuple(i.shape)) or real(i, t))
+    bags = two_tower.field_bags(_t(table), _t(ids))
+    b, f, k = ids.shape
+    assert calls == [(b * f, k)]
+    assert len(bags) == f and all(bag.shape == (b, d) and bag.stride() == (f * d, 1)
+                                  for bag in bags)
+    for field in range(f):
+        _close(bags[field], ref_emb.embedding_bag(jnp.asarray(table), jnp.asarray(ids[:, field])))
+    if case == "zipf":
+        assert bags[1][5].isnan().all() and not bags[0][5].isnan().any()
+
+
+def test_serve_scores_match_reference_on_repeat_heavy_items():
+    """Items drawn from Zipf(1) over 40 rows: most of a batch's item lookups
+    repeat a row; the scores are the reference's."""
+    cfg = dataclasses.replace(configs.SMOKE, item_vocab=40)
+    params, ref_cfg, rb, model, pb = _pair(cfg, batch=64, seed=2)
+    items = pb["item_ids"][pb["item_ids"] >= 0]
+    assert torch.unique(items).numel() < items.numel() / 4
+    _close(model.serve_scores(pb), ref_tt.serve_scores(params, rb, ref_cfg), SCORE_TOL)
+    _close(model.item_tower(pb["item_ids"]), ref_tt.item_tower(params, rb["item_ids"], ref_cfg))
+
+
 def test_two_tower_from_reference_refuses_mismatched_params():
     cfg = configs.SMOKE
     params = jax.tree.map(np.asarray, ref_tt.init_params(
