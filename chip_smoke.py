@@ -182,6 +182,19 @@ Phases, one output line each:
    (gemma-2b long_500k's bonus decode step, gcn-cora full_graph_sm's train
    step, two-tower serve_p99's scores), each against the plain function;
    ``sharding_launches`` counts each kernel's launches in phases 21-23.
+24. dryrun — ``python -m repro_torch.launch.dryrun --mesh single`` as
+   processes side by side (rank 0 of a fake world of 256 as the (16, 16)
+   production mesh, the steps run on fake CUDA tensors): qwen2-7b
+   prefill_32k, granite-moe-1b-a400m train_4k (expert-parallel MoE),
+   deepseek-v2-lite-16b decode_32k, gcn-cora ogb_products, two-tower
+   serve_p99 and train_batch, and the PBME TC bonus row (n = 81,920), every
+   record ``ok`` or ``bonus-ok``, each with per-rank argument, temp and peak
+   bytes beside the card's ``total_memory``, FLOPs, collective bytes and the
+   kernels' shape-only calls (the TC step's ``bitmm``, whose scratch size
+   must equal the kernel's); then RUN_CELLS traced on a fake world of one,
+   arguments + temp within ``DRYRUN_TOL`` of phase 23's warm call's own
+   peak plus its blocks.  No real tensor may take a wrapper's shape-only
+   branch (``fake_calls`` 0 in this process).
 
 Then a ``kernels`` JSON line (``launches``: each kernel's count on its main
 path — TC and SG at G10K for ``bitmm`` and ``bitmm_fused_delta``, phases 8
@@ -195,7 +208,8 @@ references or the live instances built to compare with;
 ``sharded_launches``: phase 10's three sharded fixpoints; ``lm_launches``:
 phases 14-16, ``train_launches``: phases 17-20 and ``sharding_launches``:
 phases 21-23, which must be 0, as no kernel of the repo lies on the LM or
-GNN path and the sharded recsys scores take torch ops), the card's name
+GNN path and the sharded recsys scores take torch ops; ``dryrun_fake_calls``:
+the shape-only calls in phase 24's traced steps), the card's name
 and power limit, and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero; so does a machine without CUDA.
 Every instance is admitted through the static analyzer's rewrites
@@ -300,6 +314,27 @@ HALO, HALO_TOL, HALO_GRAD_TOL = 512, 1e-5, 1e-4
 SEED = 0
 RUN_CELLS = (("gemma-2b", "long_500k"), ("gcn-cora", "full_graph_sm"),
              ("two-tower-retrieval", "serve_p99"))
+# phase 24, the dry run: one cell of each kind and step on the single-pod mesh
+# (the TC bonus row comes with serve_p99, traced without --arch), each its own
+# process, all at once; RUN_CELLS traced on a fake world of one against their
+# real runs in phase 23
+DRYRUN_CELLS = (("qwen2-7b", "prefill_32k"), ("granite-moe-1b-a400m", "train_4k"),
+                ("deepseek-v2-lite-16b", "decode_32k"), ("gcn-cora", "ogb_products"),
+                ("two-tower-retrieval", "train_batch"), (None, "serve_p99"))
+DRYRUN_UNIT = """
+import json, sys
+from repro_torch.distributed import make_mesh
+from repro_torch.launch import dryrun
+dryrun.fake_world(1)
+mesh = make_mesh((1, 1), ("data", "model"))
+print(json.dumps({"/".join(key): dryrun.run_cell(*key, mesh, "unit-1x1")
+                  for key in json.loads(sys.argv[1])}))
+"""
+# the estimate counts each storage's exact bytes, the caching allocator rounds each
+# block up to 512 bytes: gcn-cora's step read 2.1e-4 above its estimate (3,860
+# bytes over its small live tensors), gemma-2b's and two-tower's 0 and 7e-8 (H100
+# 80GB HBM3, 700.00 W); 1e-3 leaves room for 5x that rounding and no more
+DRYRUN_TOL = 1e-3
 TXN_PROG = """
 tc(x,y) :- arc(x,y).
 tc(x,y) :- rail(x,y).
@@ -2737,8 +2772,10 @@ def arg_bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves_of(tree))
 
 
-def cells_phase(dev, mesh, smi) -> None:
-    """Phase 23: every registry cell built on the mesh, then RUN_CELLS run."""
+def cells_phase(dev, mesh, smi) -> dict:
+    """Phase 23: every registry cell built on the mesh, then RUN_CELLS run;
+    returns each run's record (``dryrun_phase`` holds the dry run's estimate
+    of its peak against ``call_peak_bytes``)."""
     import collections
     import dataclasses
 
@@ -2769,15 +2806,28 @@ def cells_phase(dev, mesh, smi) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     ran = {}
+    peaks = {}
 
     def timed_calls(fn, calls=1 + SHARDED_TIMED):
+        """The calls' ms; ``peaks``: the second call's own peak (the
+        allocator's peak reset before it, the first call's result freed; the
+        first call also allocates the libraries' workspaces, once a process),
+        what was resident then, and the peak before the reset
+        (``peak_memory_bytes`` keeps both windows)."""
         out, ms = None, []
-        for _ in range(calls):
+        for i in range(calls):
+            out = None
             torch.cuda.synchronize()
+            if i == 1:
+                peaks.update(before=torch.cuda.max_memory_allocated(),
+                             resident=torch.cuda.memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t) * 1e3)
+            if i == 1:
+                peaks["call"] = torch.cuda.max_memory_allocated()
         return out, ms
 
     for key in RUN_CELLS:
@@ -2794,6 +2844,7 @@ def cells_phase(dev, mesh, smi) -> None:
                                    dtype=torch.int32)
             pos = torch.tensor(seq - 1, dtype=torch.int32)
             args = place((params, cache, tokens, pos), cell.in_shardings)
+            block_bytes = arg_bytes(args)
             (logits, _), ms = timed_calls(lambda: cell.fn(*args))
             with uncounted(), torch.no_grad():
                 want, _ = tf.decode_step(params, cache, tokens, seq - 1, cfg)
@@ -2819,6 +2870,7 @@ def cells_phase(dev, mesh, smi) -> None:
             box = {"state": place(init_train_state({k: w.clone() for k, w in params.items()}),
                                   cell.in_shardings[0])}
             g_blk = place(g, cell.in_shardings[1])
+            block_bytes = arg_bytes((box["state"], g_blk))
 
             def one_step():
                 box["state"], m = cell.fn(box["state"], g_blk)
@@ -2845,6 +2897,7 @@ def cells_phase(dev, mesh, smi) -> None:
                                   batch=batch_sds["user_ids"].shape[0], seed=SEED)
             batch = {k: torch.as_tensor(v, device=dev) for k, v in stream.batch(0).items()}
             args = place((params, batch), cell.in_shardings)
+            block_bytes = arg_bytes(args)
             with torch.no_grad():
                 scores, ms = timed_calls(lambda: cell.fn(*args))
                 with uncounted():
@@ -2854,11 +2907,111 @@ def cells_phase(dev, mesh, smi) -> None:
                   f"{key}: scores {tuple(scores.shape)}, {err} from the unsharded scores")
             result = {"out_shape": list(scores.shape), "max_abs_err_vs_plain": err}
             del params, args, batch
-        ran["/".join(key)] = {"arg_bytes": arg_bytes(cell.args), "skip": cell.skip,
-                              "model_flops": cell.model_flops, "call_ms": ms,
-                              "peak_memory_bytes": torch.cuda.max_memory_allocated(), **result}
+        ran["/".join(key)] = {
+            "arg_bytes": arg_bytes(cell.args), "skip": cell.skip,
+            "model_flops": cell.model_flops, "call_ms": ms,
+            "peak_memory_bytes": max(peaks["before"], torch.cuda.max_memory_allocated()),
+            "call_peak_bytes": peaks["call"], "resident_bytes": peaks["resident"],
+            "block_bytes": block_bytes, **result}
         torch.cuda.empty_cache()
     emit("cells_run", cells=ran, seed=SEED, card=smi)
+    return ran
+
+
+def dryrun_phase(work, run_cells, smi) -> dict:
+    """Phase 24: ``python -m repro_torch.launch.dryrun`` on the single-pod
+    mesh (a fake world of 256, fake CUDA tensors) for DRYRUN_CELLS, and
+    RUN_CELLS traced on a fake world of one held against their real runs:
+    the estimate (arguments + temp) against the warm call's own peak
+    (``call_peak_bytes`` less what was resident, plus the blocks).  Returns
+    the hand-written kernels' shape-only calls in the traced steps."""
+    from repro_torch.kernels import bitmm as kb
+    from repro_torch.launch.dryrun import TC_N
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "single"]
+    runs = {f"cell{i}": cmd + (["--arch", arch] if arch else [])
+            + ["--shape", shape, "--out", os.path.join(work, f"cell{i}.json")]
+            for i, (arch, shape) in enumerate(DRYRUN_CELLS)}
+    runs["unit"] = [sys.executable, "-c", DRYRUN_UNIT, json.dumps(RUN_CELLS)]
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name, argv in runs.items():   # output to files: no pipe fills while others wait
+            with open(os.path.join(work, f"{name}.out"), "w") as out, \
+                    open(os.path.join(work, f"{name}.err"), "w") as err:
+                procs[name] = subprocess.Popen(argv, stdout=out, stderr=err, text=True, env=env)
+        for p in procs.values():
+            p.wait(timeout=900)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+
+    def text(name, ext):
+        with open(os.path.join(work, f"{name}.{ext}")) as f:
+            return f.read()
+
+    for name, p in procs.items():
+        check(p.returncode == 0, f"dry run {runs[name][3:]} exited {p.returncode}: "
+              f"{text(name, 'err')[-2000:]}")
+    unit_out = text("unit", "out")
+
+    recs = {}
+    for i in range(len(DRYRUN_CELLS)):
+        recs.update(json.loads(text(f"cell{i}", "json")))
+    bad = {k: r.get("error") for k, r in recs.items() if r["status"] not in ("ok", "bonus-ok")}
+    check(len(recs) == len(DRYRUN_CELLS) + 1 and not bad, f"dry-run records {sorted(recs)}: {bad}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    cells = {k.split("|", 1)[1]: {
+        "argument_bytes": r["argument_size_in_bytes"], "temp_bytes": r["temp_size_in_bytes"],
+        "peak_bytes": r["argument_size_in_bytes"] + r["temp_size_in_bytes"],
+        "fits": r["argument_size_in_bytes"] + r["temp_size_in_bytes"] <= total,
+        "flops": r["flops"], "model_flops": r["model_flops"], "collectives": r["collectives"],
+        "kernel_calls": r["kernel_calls"], "trace_s": r["trace_s"], "total_s": r["total_s"],
+        **({"depths_traced": r["depths_traced"]} if "depths_traced" in r else {}),
+    } for k, r in recs.items()}
+    tc = cells["datalog-tc-pbme|g80k"]
+    check(tc["kernel_calls"] == {"bitmm": 1}, f"the TC step reached {tc['kernel_calls']}")
+    # the shape-only branch takes the kernel's own scratch: at the test shapes
+    # and at the TC step's on (16, 16), in words (rows, K words, output words)
+    shapes = [(m, (k + 31) // 32, (n + 31) // 32) for m, k, n in EXACT_SHAPES]
+    for rows, kw, nw in shapes + [(TC_N // 16, TC_N // 32, TC_N // 32 // 16)]:
+        want = kb._lib().bitmm_workspace_bytes(rows, kw, nw)
+        check(kb.workspace_bytes(rows, kw, nw) == want,
+              f"workspace_bytes{(rows, kw, nw)} is not the kernel's {want}")
+
+    estimate = {}
+    unit_recs = json.loads(unit_out.splitlines()[-1])
+    for key, rec in unit_recs.items():
+        if rec["status"] not in ("ok", "bonus-ok"):
+            continue
+        run = run_cells[key]
+        truth = run["block_bytes"] + run["call_peak_bytes"] - run["resident_bytes"]
+        est = rec["argument_size_in_bytes"] + rec["temp_size_in_bytes"]
+        err = abs(est - truth) / truth
+        estimate[key] = {"argument_bytes": rec["argument_size_in_bytes"],
+                         "block_bytes": run["block_bytes"],
+                         "temp_bytes": rec["temp_size_in_bytes"],
+                         "step_bytes": run["call_peak_bytes"] - run["resident_bytes"],
+                         "estimate_bytes": est, "truth_bytes": truth, "rel_err": err,
+                         "call_peak_bytes": run["call_peak_bytes"],
+                         "resident_bytes": run["resident_bytes"], "trace_s": rec["trace_s"]}
+    emit("dryrun", mesh="single-pod-16x16", devices=256, total_memory=total, cells=cells,
+         estimate_vs_card=estimate, tol=DRYRUN_TOL, seconds=seconds, card=smi)
+    for key, rec in unit_recs.items():
+        check(rec["status"] in ("ok", "bonus-ok"), f"{key} on a fake world of one: {rec}")
+        got = estimate[key]
+        check(got["argument_bytes"] == got["block_bytes"] and got["rel_err"] <= DRYRUN_TOL,
+              f"{key}: the dry run's {got['estimate_bytes']} bytes against "
+              f"{got['truth_bytes']} on the card")
+    calls = {}
+    for r in recs.values():
+        for name, n in r["kernel_calls"].items():
+            calls[name] = calls.get(name, 0) + n
+    return calls
 
 
 def launch_serve_phase(kind, smi) -> None:
@@ -3228,13 +3381,18 @@ def main() -> int:
             mesh = make_mesh((1, 1), ("data", "model"))
             sharded_lm_phase(dev, mesh, smi, lm_train_ms)
             halo_gcn_phase(dev, mesh, smi, gcn_ms)
-            cells_phase(dev, mesh, smi)
+            run_cells = cells_phase(dev, mesh, smi)
         finally:
             dist.destroy_process_group()
     sharding_launches = {name: c.launches for name, c in counters.items()}
     emit("sharding_kernels", launches=sharding_launches)
     check(not any(sharding_launches.values()),
           f"the sharded forms and cells launched {sharding_launches}")
+    torch.cuda.empty_cache()
+
+    # -- 24. the dry run: the registry's cells traced for one rank of 256 ----------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun-") as work:
+        dryrun_calls = dryrun_phase(work, run_cells, smi)
 
     # -- 6c. durability: snapshots, the WAL, restore, engine checkpoints -------------
     # last, so that its files and host buffers cannot slow phases 7-9; counted
@@ -3242,6 +3400,10 @@ def main() -> int:
     durability_phases(dev)
     check(DURABLE_LAUNCHES["bitmm"] > 0 and DURABLE_LAUNCHES["bitmm_fused_delta"] > 0,
           f"the durability path launched {DURABLE_LAUNCHES}")
+
+    # no real tensor took a wrapper's shape-only branch
+    fake = {name: c.fake_calls for name, c in kernel_counters().items()}
+    check(not any(fake.values()), f"real tensors took the shape-only branch: {fake}")
 
     # -- report --------------------------------------------------------------
     sources = {   # name → (CUDA source, the TPU kernel it replaces)
@@ -3273,6 +3435,7 @@ def main() -> int:
             "lm_launches": lm_launches[name],
             "train_launches": train_launches[name],
             "sharding_launches": sharding_launches[name],
+            "dryrun_fake_calls": dryrun_calls.get(name, 0),
             "max_abs_err": err[name],
             "ms": timed[name]["ms"],
             "plain_ms": timed[name]["plain_ms"],

@@ -25,6 +25,7 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils._pytree import tree_map
 
 from repro_torch.distributed.mesh import axis_sizes, dp_axes_of
@@ -177,8 +178,13 @@ def _accum_for(cfg: TransformerConfig, batch: int, seq: int, mesh) -> int:
     return accum
 
 
-def build_lm_cell(arch: str, shape: str, mesh) -> Cell:
-    cfg: TransformerConfig = arch_config(arch)
+def build_lm_cell(arch: str, shape: str, mesh, layers: int | None = None) -> Cell:
+    """``layers`` cuts the stack after the dense prefix to that many layers
+    (the dry run's depth extrapolation, ``launch/dryrun.py``); the gradient
+    accumulation stays the full depth's, and MODEL_FLOPS count the cut model."""
+    full: TransformerConfig = arch_config(arch)
+    cfg = full if layers is None else dataclasses.replace(
+        full, n_layers=full.n_dense_prefix + layers)
     sd = _LM_SHAPE_DEFS[shape]
     seq, batch = sd["seq"], sd["batch"]
     dp = dp_axes_of(mesh)
@@ -194,7 +200,7 @@ def build_lm_cell(arch: str, shape: str, mesh) -> Cell:
         return cell
 
     if sd["step"] == "train":
-        accum = _accum_for(cfg, batch, seq, mesh)
+        accum = _accum_for(full, batch, seq, mesh)
         state_sds, state_sh = _state_specs(cfg, mesh)
         step_fn = make_sharded_train_step(lm_loss, cfg, mesh, state_sh.params, accum=accum,
                                           remat=True)
@@ -241,12 +247,21 @@ def _lm_decode_cell(arch, shape, cfg, mesh, seq, batch) -> Cell:
     cache_sds = init_cache(cfg, batch, seq, device=META)
     cache_sh = _cache_sharding(cache_sds, mesh, batch)
 
+    # the cache's sequence blocks only: its batch blocks stay with the tokens'
+    seq_sh = tree_map(lambda sh: Sharding(mesh, tuple(e if i == 2 else None
+                                                      for i, e in enumerate(sh.spec))),
+                      cache_sh)
+
     def fn(params, cache, tokens, pos):
         """One step on this rank's blocks: the weights and the cache's
-        sequence blocks gathered at use, the new cache cut into blocks again."""
-        logits, new = decode_step(gather(params, params_sh), gather(cache, cache_sh), tokens,
-                                  int(pos), cfg)
-        return logits, place(new, cache_sh)
+        sequence blocks gathered at use (its batch blocks are this rank's
+        tokens'), the new cache cut into sequence blocks again.  A fake
+        ``pos`` (a shapes-only trace) stands for the last position: the step
+        attends the whole cache under a mask wherever it writes."""
+        pos = seq - 1 if is_fake(pos) else int(pos)
+        logits, new = decode_step(gather(params, params_sh), gather(cache, seq_sh), tokens,
+                                  pos, cfg)
+        return logits, place(new, seq_sh)
 
     tok_spec = (dp,) if batch % _dp_size(mesh) == 0 else ()
     return Cell(

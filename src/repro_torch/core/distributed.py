@@ -14,11 +14,14 @@ SUMMA-style decomposition over a mesh of ranks (``repro_torch.distributed``):
 
 Every rank runs the same step on its own blocks; each step function records
 the bytes of its collectives' outputs on this rank in its last iteration
-(``step.collective_bytes``, by kind), computed from the tensors' sizes: the
-counterpart of the reference's HLO count (``lower_tc_step``).
+(``step.collective_bytes``, by kind), computed from the tensors' sizes.
 ``tc_fixpoint_sharded.last_collective_bytes`` keeps its last step's record,
-as the kernels' wrappers keep their launch counts.  Counts are
-reduced as int64 (gloo has no unsigned sum); packed words stay ``int32``.
+as the kernels' wrappers keep their launch counts.  ``lower_tc_step`` gives
+one step and this rank's arguments as fake tensors, the counterpart of the
+reference's AOT lowering: ``distributed.collective_bytes`` counts its
+traffic as the reference counts XLA's HLO.  Counts are reduced as int64
+(gloo has no unsigned sum, and n² bits overflow int32 past n = 46341); packed
+words stay ``int32``.
 """
 
 from __future__ import annotations
@@ -134,6 +137,43 @@ def make_tc_step_psum(mesh, row_axes: tuple[str, ...], col_axis: str):
 
     step.collective_bytes = {}
     return step
+
+
+def lower_tc_step(
+    mesh,
+    n: int,
+    row_axes=("data",),
+    col_axis="model",
+    schedule: str = "allgather",
+):
+    """The sharded TC step and this rank's arguments as fake tensors (shapes
+    only, on the mesh's device): the reference's AOT lowering, for the dry
+    run (``launch/dryrun.py``) and the step's collective bytes.  Call the
+    step under the arguments' ``FakeTensorMode`` (``args[0].fake_mode``).
+
+    schedule ∈ {"allgather" (2-D baseline), "rows1d" (paper-faithful),
+    "psum" (reduce-scatter variant)}.  Returns (step, (delta, arc, m))."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    if schedule not in SCHEDULES:
+        raise ValueError(f"lower_tc_step: schedule {schedule!r}, not one of {SCHEDULES}")
+    row_axes = tuple(row_axes)
+    rows, cols = axis_size(mesh, row_axes), axis_size(mesh, col_axis)
+    n_pad = padded_n(n, rows, cols)
+    w = n_pad // 32
+    if schedule == "rows1d":
+        step = make_tc_step_1d(mesh, row_axes)
+        dm, arc = (n_pad // rows, w), (n_pad, w)
+    elif schedule == "psum":
+        step = make_tc_step_psum(mesh, row_axes, col_axis)
+        dm, arc = (n_pad // rows, w // cols), (n_pad // cols, w)
+    else:
+        step = make_tc_step(mesh, row_axes, col_axis)
+        dm, arc = (n_pad // rows, w // cols), (n_pad, w // cols)
+    with FakeTensorMode():
+        args = tuple(torch.empty(shape, dtype=torch.int32, device=mesh_device(mesh))
+                     for shape in (dm, arc, dm))
+    return step, args
 
 
 def tc_fixpoint_sharded(

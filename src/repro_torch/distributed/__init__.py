@@ -1,10 +1,11 @@
 """The distributed layer on ``torch.distributed``: a named process grid
 (``make_mesh``), collectives with the reference's transposes, the mesh
 context, and the partition rules (``param_sharding``, ``batch_sharding``,
-``lm_param_spec``) with ``place``/``gather`` for this rank's blocks.  The
-reference's ``shard_map`` has no counterpart (each rank is a process that
-runs its shard's code), nor has ``collective_bytes`` (it reads XLA's HLO;
-the port's sharded steps count their own bytes)."""
+``lm_param_spec``) with ``place``/``gather`` for this rank's blocks, and
+``collective_bytes``, which counts this rank's collective traffic at the
+dispatcher as the reference counts it in XLA's HLO.  The reference's
+``shard_map`` has no counterpart (each rank is a process that runs its
+shard's code)."""
 
 from repro_torch.distributed.mesh import (
     axes_group,
@@ -29,6 +30,7 @@ from repro_torch.distributed.sharding import (
     place,
     replicated,
 )
+from repro_torch.distributed.traffic import collective_bytes
 
 __all__ = [
     "make_mesh",
@@ -55,4 +57,5 @@ __all__ = [
     "replicated",
     "place",
     "gather",
+    "collective_bytes",
 ]

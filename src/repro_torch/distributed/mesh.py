@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.utils._python_dispatch import _disable_current_modes
 
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], device=None) -> DeviceMesh:
@@ -55,7 +56,10 @@ def axes_group(mesh: DeviceMesh, axes) -> dist.ProcessGroup:
     axes = _axes(axes)
     if len(axes) == 1:
         return mesh.get_group(axes[0])
-    return mesh[axes]._flatten().get_group()
+    # slicing a mesh computes on its table of ranks, a host tensor: outside
+    # any dispatch mode, so that a shapes-only trace does not make it fake
+    with _disable_current_modes():
+        return mesh[axes]._flatten().get_group()
 
 
 def axis_size(mesh: DeviceMesh, axes) -> int:

@@ -6,7 +6,10 @@ A CUDA tensor launches the hand-written kernel on PyTorch's current stream
 :mod:`repro_torch.kernels.ref`.  Each wrapper counts its calls that launch
 the kernel in ``<wrapper>.launches``; one call is a transpose of B's words,
 the stage plan and the product (a tensor-core kernel and a light kernel for
-row blocks that need no MMA), all on the same stream.
+row blocks that need no MMA), all on the same stream.  A fake CUDA tensor (a
+shapes-only trace, ``launch/dryrun.py``) gets outputs of the kernel's shapes
+and its scratch (``workspace_bytes``), and nothing is built or launched: such
+calls count in ``<wrapper>.fake_calls``.
 
 The kernel's blocks own 128 rows by 8 output words and walk K in stages of
 1024 bits: an empty stage is skipped, a stage whose 128 x 1024 tile of A holds
@@ -25,12 +28,16 @@ import ctypes
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import bitmm_fused_delta_plain, bitmm_plain
 
 _MAX_GRID_Y = 65535         # blocks along the output words (grid y)
 _WORDS_PER_BLOCK = 8        # output words per block: 256 columns
+# csrc/bitmm.cu's default tile constants, for workspace_bytes: rows per block
+# (BM), K words per stage (BKW) and listed bits per row block (WALK_CAP)
+_BM, _BKW, _WALK_CAP = 128, 32, 8192
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor | None = None) -> None:
@@ -76,6 +83,24 @@ def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     return lib
 
 
+def workspace_bytes(rows: int, kw: int, nw: int) -> int:
+    """The scratch bytes of one call (``bitmm_workspace_bytes`` in
+    ``csrc/bitmm.cu`` at its default constants): B transposed, the stage
+    plan, the walk counts and the walk lists."""
+    up8 = lambda n: (n + 7) // 8 * 8
+    kwp = (kw + _BKW - 1) // _BKW * _BKW
+    stages, blocks = kwp // _BKW, (rows + _BM - 1) // _BM
+    return 32 * nw * kwp * 4 + up8(blocks * stages * 4) + up8(blocks * 4) + blocks * _WALK_CAP * 8
+
+
+def _fake_call(a: torch.Tensor, nw: int, outputs: int) -> list[torch.Tensor]:
+    """A shapes-only call: the outputs, and the scratch the kernel would take
+    beside them until it returns."""
+    outs = [a.new_empty((a.shape[0], nw)) for _ in range(outputs)]
+    a.new_empty(workspace_bytes(a.shape[0], a.shape[1], nw), dtype=torch.uint8)
+    return outs
+
+
 def _workspace(lib: ctypes.CDLL, a: torch.Tensor, nw: int) -> torch.Tensor:
     nbytes = lib.bitmm_workspace_bytes(a.shape[0], a.shape[1], nw)
     return torch.empty(nbytes, dtype=torch.uint8, device=a.device)
@@ -87,6 +112,9 @@ def bitmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return bitmm_plain(a, b)
     rows, nw = a.shape[0], b.shape[1]
+    if is_fake(a) or is_fake(b):
+        bitmm.fake_calls += 1
+        return _fake_call(a, nw, 1)[0]
     c = torch.empty((rows, nw), dtype=torch.int32, device=a.device)
     if c.numel() == 0:
         return c
@@ -104,6 +132,7 @@ def bitmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 bitmm.launches = 0
+bitmm.fake_calls = 0
 
 
 def bitmm_fused_delta(
@@ -114,6 +143,9 @@ def bitmm_fused_delta(
     if a.device.type == "cpu":
         return bitmm_fused_delta_plain(a, b, m)
     rows, nw = a.shape[0], b.shape[1]
+    if is_fake(a) or is_fake(b) or is_fake(m):
+        bitmm_fused_delta.fake_calls += 1
+        return tuple(_fake_call(a, nw, 2))
     delta = torch.empty((rows, nw), dtype=torch.int32, device=a.device)
     m_out = torch.empty_like(delta)
     if delta.numel() == 0:
@@ -132,3 +164,4 @@ def bitmm_fused_delta(
 
 
 bitmm_fused_delta.launches = 0
+bitmm_fused_delta.fake_calls = 0

@@ -8,7 +8,10 @@ summed in float32.  A bag holding an id ≥ N comes out NaN (see
 A CUDA tensor launches the hand-written kernel on PyTorch's current stream
 (no synchronisation; the output allocated here with ``torch.empty``) or
 raises; a CPU tensor runs the plain version.  ``gather_sum.launches`` counts
-kernel launches.  The kernel has no backward: serving only.
+kernel launches.  The kernel has no backward: serving only.  A fake CUDA
+tensor (a shapes-only trace, ``launch/dryrun.py``) gets an output of the
+kernel's shape and dtype, and nothing is built or launched: such calls count
+in ``gather_sum.fake_calls``.
 
 The kernel takes bags in tiles and fetches a row that repeats within a tile
 once, into shared memory (``csrc/gather_sum.cu``), so callers should hand it
@@ -22,6 +25,7 @@ import ctypes
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gather_sum_plain
@@ -78,6 +82,9 @@ def gather_sum(idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if idx.device.type == "cpu":
         return gather_sum_plain(idx, x)
     (bags, k), (n, d) = idx.shape, x.shape
+    if is_fake(idx) or is_fake(x):
+        gather_sum.fake_calls += 1
+        return x.new_empty((bags, d))
     out = torch.empty((bags, d), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
@@ -93,6 +100,7 @@ def gather_sum(idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 gather_sum.launches = 0
+gather_sum.fake_calls = 0
 
 
 def spmm_ell(idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

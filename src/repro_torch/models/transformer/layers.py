@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.distributed.collectives import grad_psum, pmean, psum
 from repro_torch.distributed.context import get_data_group, get_dp_axes, get_mesh
@@ -283,6 +284,16 @@ def _grouped_matmul(xs, w, sizes: list[int]):
     return torch.cat(parts) if parts else xs.new_empty((0, w.shape[-1]))
 
 
+def _host_sizes(group_sizes: torch.Tensor, rows: int, groups: int) -> list[int]:
+    """The first ``groups`` segment sizes, read on the host.  A fake tensor
+    (a shapes-only trace, ``launch/dryrun.py``) has no values: its ``rows``
+    (T·k) are split evenly over the ``groups``, the reference's static
+    ``ragged_dot`` shapes, so memory and FLOPs bound the real step's."""
+    if is_fake(group_sizes):
+        return [rows // groups + (i < rows % groups) for i in range(groups)]
+    return group_sizes.tolist()[:groups]
+
+
 def moe_apply(p, x, cfg: TransformerConfig):
     """Token-choice top-k MoE by sort dispatch (MegaBlocks-style).
 
@@ -315,7 +326,7 @@ def moe_apply(p, x, cfg: TransformerConfig):
     # min and max on the host, two more synchronisations on the card
     group_sizes = torch.zeros(e, dtype=flat_e.dtype, device=x.device).index_add_(
         0, flat_e, torch.ones_like(flat_e))
-    sizes = group_sizes.tolist()
+    sizes = _host_sizes(group_sizes, t * k, e)
     if ROUTED is not None:
         ROUTED.append(sum(1 for n in sizes if n))
 
@@ -384,7 +395,7 @@ def _moe_apply_ep(p, x, cfg: TransformerConfig):
     order = torch.argsort(flat_e, stable=True)
     group_sizes = torch.zeros(e_loc + 1, dtype=flat_e.dtype, device=x.device).index_add_(
         0, flat_e, torch.ones_like(flat_e))
-    sizes = group_sizes.tolist()[:e_loc]
+    sizes = _host_sizes(group_sizes, t * k, e_loc)
     if ROUTED is not None:
         ROUTED.append(sum(1 for n in sizes if n))
     kept = order[:sum(sizes)]                                  # the drop bin sorts last

@@ -18,6 +18,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 
@@ -69,8 +70,11 @@ def adamw_update(
     # count), so each leaf's update is in-place arithmetic with one temporary:
     # p ← p·(1 − lr·wd) − (lr·√bc2 / bc1) · mu / (√nu + eps·√bc2), which is
     # the reference's p − lr·((mu/bc1) / (√(nu/bc2) + eps) + wd·p)
-    t = int(count)
-    lr = float(lr)
+    if is_fake(count):
+        # a shapes-only trace (launch/dryrun.py) has no count or rate to read
+        t, lr = 1, 0.0
+    else:
+        t, lr = int(count), float(lr)
     bc1, sqrt_bc2 = 1.0 - b1 ** t, math.sqrt(1.0 - b2 ** t)
 
     with torch.no_grad():

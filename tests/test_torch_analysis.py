@@ -428,19 +428,17 @@ def test_cli_runs_as_a_module_on_the_host():
 
 # -- the packages' public names ------------------------------------------------
 
-#: the distributed layer's JAX-only names, which have no counterpart:
-#: ``shard_map`` (each rank is a process that runs its shard's code) and
-#: ``collective_bytes`` (it parses XLA's HLO; the port's sharded steps count
-#: their own bytes)
+#: the distributed layer's JAX-only name, which has no counterpart:
+#: ``shard_map`` (each rank is a process that runs its shard's code)
 UNPORTED = {
-    "distributed": {"shard_map", "collective_bytes"},
+    "distributed": {"shard_map"},
 }
 
 
 @pytest.mark.parametrize("package", ["core", "obs", "relational", "data", "analysis",
                                      "serve_datalog", "persist", "loadgen", "optim", "train",
                                      "distributed", "models.recsys", "models.transformer",
-                                     "models.gnn", "configs"])
+                                     "models.gnn", "configs", "launch"])
 def test_exports_cover_the_reference(package):
     ref = importlib.import_module(f"repro.{package}")
     port = importlib.import_module(f"repro_torch.{package}")
