@@ -35,6 +35,7 @@ from repro_torch.core.ast import Var
 from repro_torch.core.relation import SENTINEL, TupleRelation, next_bucket
 from repro_torch.kernels.bitmm import bitmm, bitmm_fused_delta
 from repro_torch.kernels.ref import pack_bits, unpack_bits
+from repro_torch.obs.trace import TRACER as _TRACE
 
 
 # --------------------------------------------------------------------------
@@ -313,14 +314,20 @@ class BitmatrixPlan:
         :class:`TupleRelation`, converted from the packed matrix on the device
         (the same sorted rows, count and capacity as ``from_numpy``)."""
         edb = store[self.edb]
-        arc = edges_to_bitmatrix(edb.rows[: edb.count], self.n)
+        device = edb.rows.device
+        with _TRACE.device_span("pbme.build", "pbme", device=device, n=self.n):
+            arc = edges_to_bitmatrix(edb.rows[: edb.count], self.n)
         fixpoint = tc_fixpoint if self.kind == "tc" else sg_fixpoint
-        m, self.iterations = fixpoint(arc, self.n)
-        pairs = bitmatrix_to_rows(m, self.n)
-        count = pairs.shape[0]
-        rows = torch.full((next_bucket(count), 2), SENTINEL, dtype=torch.int32,
-                          device=pairs.device)
-        rows[:count] = pairs
+        with _TRACE.device_span("pbme.fixpoint", "pbme", device=device, n=self.n) as sp:
+            m, self.iterations = fixpoint(arc, self.n)
+            sp.set(iterations=self.iterations)
+        with _TRACE.device_span("pbme.to_rows", "pbme", device=device, n=self.n) as sp:
+            pairs = bitmatrix_to_rows(m, self.n)
+            count = pairs.shape[0]
+            rows = torch.full((next_bucket(count), 2), SENTINEL, dtype=torch.int32,
+                              device=pairs.device)
+            rows[:count] = pairs
+            sp.set(rows=count)
         store[self.idb] = TupleRelation(self.idb, 2, rows, count, engine.domain)
 
 

@@ -179,32 +179,39 @@ class Engine:
         package): the newest valid one is loaded onto the engine's device
         and evaluation continues from its stratum and iteration.
         """
-        if isinstance(program, str):
-            from repro_torch.core.parser import parse
+        with _TRACE.span("engine.prep", "engine", relations=len(edb)):
+            if isinstance(program, str):
+                from repro_torch.core.parser import parse
 
-            program = parse(program)
-        if strat is None:
-            strat = analyze(program)
-        t_start = time.perf_counter()
+                with _TRACE.span("engine.parse", "engine") as sp:
+                    program = parse(program)
+                    sp.set(rules=len(program.rules))
+            if strat is None:
+                with _TRACE.span("engine.analyze", "engine") as sp:
+                    strat = analyze(program)
+                    sp.set(strata=len(strat.strata))
+            t_start = time.perf_counter()
 
-        domain = 1
-        for arr in edb.values():
-            arr = np.asarray(arr)
-            if arr.size:
-                domain = max(domain, int(arr.max()) + 1)
-        self.domain = domain
+            with _TRACE.span("engine.domain", "engine") as sp:
+                domain = 1
+                for arr in edb.values():
+                    arr = np.asarray(arr)
+                    if arr.size:
+                        domain = max(domain, int(arr.max()) + 1)
+                self.domain = domain
+                sp.set(domain=domain)
 
-        store: dict[str, Any] = {}
-        for name in strat.edb:
-            if name not in edb:
-                raise KeyError(f"missing EDB relation {name!r}")
-            store[name] = TupleRelation.from_numpy(name, edb[name], domain, self.device)
+            store: dict[str, Any] = {}
+            for name in strat.edb:
+                if name not in edb:
+                    raise KeyError(f"missing EDB relation {name!r}")
+                store[name] = TupleRelation.from_numpy(name, edb[name], domain, self.device)
 
-        start_stratum, start_iter = 0, 0
-        if resume_from is not None:
-            start_stratum, start_iter, store = self._load_fixpoint(
-                resume_from, strat, store
-            )
+            start_stratum, start_iter = 0, 0
+            if resume_from is not None:
+                start_stratum, start_iter, store = self._load_fixpoint(
+                    resume_from, strat, store
+                )
 
         with _TRACE.span(
             "engine.run", "engine", strata=len(strat.strata), domain=domain
@@ -945,6 +952,7 @@ class Engine:
         if self.device.type == "cuda":
             # the iteration's kernels are done before anything is copied
             torch.cuda.synchronize(self.device)
+            _TRACE.count_sync()
         write_snapshot(
             path,
             handles=store,

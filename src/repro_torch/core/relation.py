@@ -22,6 +22,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import TRACER as _TRACE
 from repro_torch.relational.sort import SENTINEL, argsort_rows, compact_key, unique_mask
 
 INT_INF = SENTINEL
@@ -165,9 +166,14 @@ class TupleRelation:
         data = np.asarray(data, dtype=np.int32)
         if data.ndim == 1:
             data = data[:, None]
-        data = np.unique(data, axis=0) if data.size else data
-        cap = next_bucket(len(data))
-        rows = _sort_pad(torch.as_tensor(data, device=device), cap, domain)
+        with _TRACE.device_span("edb.upload", "engine", device=device, rel=name,
+                                rows_in=len(data)) as sp:
+            if data.size:
+                with _TRACE.span("edb.dedup", "engine"):
+                    data = np.unique(data, axis=0)
+            cap = next_bucket(len(data))
+            rows = _sort_pad(torch.as_tensor(data, device=device), cap, domain)
+            sp.set(rows=len(data))
         return cls(name, data.shape[1], rows, int(len(data)), domain)
 
     def sorted_by(self, col: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.joins import membership
+from repro_torch.obs.trace import TRACER as _TRACE
 from repro_torch.relational.sort import SENTINEL, argsort_rows
 
 
@@ -124,10 +125,12 @@ def calibrate_alpha(
         fn()                                            # warm
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+            _TRACE.count_sync()
         t0 = time.perf_counter()
         fn()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+            _TRACE.count_sync()
         return time.perf_counter() - t0
 
     rng = np.random.default_rng(seed)

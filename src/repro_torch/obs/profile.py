@@ -23,6 +23,8 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass, field
 
+from repro_torch.obs.trace import PORT_ONLY_SPANS
+
 
 #: Misestimation-ratio histogram buckets: a symmetric log ladder around 1.0
 #: (perfect estimate).  < 1 = overestimate, > 1 = underestimate.
@@ -294,6 +296,11 @@ def spans_for_rid(spans, rid: int) -> list:
 
 
 def _tree_from(spans) -> list[ProfileNode]:
+    """The span forest, without the port's own phase spans
+    (:data:`~repro_torch.obs.trace.PORT_ONLY_SPANS`): their children hang
+    from the nearest span kept, so the tree is the reference's."""
+    parent = {s.span_id: s.parent_id for s in spans}
+    dropped = {s.span_id for s in spans if s.name in PORT_ONLY_SPANS}
     nodes = {
         s.span_id: ProfileNode(
             name=s.name,
@@ -303,13 +310,17 @@ def _tree_from(spans) -> list[ProfileNode]:
                 if not k.startswith("profile_rid")
             },
         )
-        for s in spans
+        for s in spans if s.span_id not in dropped
     }
-    ids = set(nodes)
     roots: list[ProfileNode] = []
     for s in spans:              # start-sorted → children append in time order
-        if s.parent_id in ids:
-            nodes[s.parent_id].children.append(nodes[s.span_id])
+        if s.span_id in dropped:
+            continue
+        up = s.parent_id
+        while up in dropped:
+            up = parent[up]
+        if up in nodes:
+            nodes[up].children.append(nodes[s.span_id])
         else:
             roots.append(nodes[s.span_id])
     return roots

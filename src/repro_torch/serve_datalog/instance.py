@@ -621,7 +621,9 @@ class MaterializedInstance:
         return bounds
 
     def _query_in(self, snap: Snapshot, rel: str, bounds: dict) -> np.ndarray:
-        self._wait(snap)
+        rid = _TRACE.inherit("rid")
+        with _TRACE.span("query.wait", "serve", **rid):
+            self._wait(snap)
         rows = self._tuple_rows(snap.handles, rel)
         if rows is None:
             return np.zeros((0, self.plan.program.arity_of(rel)), np.int32)
@@ -630,13 +632,18 @@ class MaterializedInstance:
             lo, hi = (
                 bounds[0] if isinstance(bounds[0], tuple) else (bounds[0], bounds[0])
             )
-            col = rows[:, 0].contiguous()
-            keys = torch.tensor([lo, hi], dtype=torch.int32, device=col.device)
-            l = int(torch.searchsorted(col, keys[:1], side="left"))
-            h = int(torch.searchsorted(col, keys[1:], side="right"))
+            with _TRACE.device_span("query.lookup", "serve", device=rows.device,
+                                    **rid) as sp:
+                col = rows[:, 0].contiguous()
+                keys = torch.tensor([lo, hi], dtype=torch.int32, device=col.device)
+                l = int(torch.searchsorted(col, keys[:1], side="left"))
+                h = int(torch.searchsorted(col, keys[1:], side="right"))
+                sp.set(rows=h - l)
             with _TRACE.span("device.sync", "serve", what="query_rows"):
                 return rows[l:h].cpu().numpy()
-        out, count = self.cache.select(rows, bounds)
+        with _TRACE.device_span("query.lookup", "serve", device=rows.device, **rid) as sp:
+            out, count = self.cache.select(rows, bounds)
+            sp.set(rows=count)
         with _TRACE.span("device.sync", "serve", what="query_rows"):
             return out[:count].cpu().numpy()
 
@@ -1365,9 +1372,14 @@ class MaterializedInstance:
         self.engine._eval_stratum(self.strat, stratum, txn.store)
         n_add = n_del = 0
         for p in stratum.preds:
-            fresh, gone = self._diff(old[p], txn.store.get(p), txn.domain)
-            n_add += fresh.count if fresh is not None else 0
-            n_del += gone.count if gone is not None else 0
+            with _TRACE.device_span("recompute.diff", "serve", device=self.device,
+                                    pred=p) as sp:
+                fresh, gone = self._diff(old[p], txn.store.get(p), txn.domain)
+                added = fresh.count if fresh is not None else 0
+                removed = gone.count if gone is not None else 0
+                sp.set(added=added, removed=removed)
+            n_add += added
+            n_del += removed
             if gone is not None and deleted is not None:
                 deleted[p] = gone
             if gone is not None and nonmono is not None:
@@ -1375,7 +1387,9 @@ class MaterializedInstance:
             elif fresh is not None:
                 changed[p] = fresh
             if stratum.index in txn.bm and txn.bm[stratum.index]["plan"].idb == p:
-                self._refresh_bitmatrix(txn, stratum.index)
+                with _TRACE.device_span("recompute.repack", "serve", device=self.device,
+                                        pred=p, added=added, removed=removed):
+                    self._refresh_bitmatrix(txn, stratum.index)
         return self.engine.stats.iterations.get(stratum.index, 1), n_add, n_del
 
     def _diff(self, old_h, new_h, domain: int):

@@ -924,3 +924,86 @@ def test_cells_build_on_the_card_mesh_without_allocating(nccl_mesh):
     assert _rel(got["loss"].cpu(), want["loss"].cpu()) <= 1e-5
     for key in params:
         assert _rel(sharded.params[key].cpu(), plain.params[key].cpu()) <= 1e-5
+
+
+# -- the tracer on the card ----------------------------------------------------
+
+def test_device_span_reads_the_kernel_time_without_waiting(cuda):
+    from repro_torch.obs.trace import Tracer
+
+    torch.cuda._sleep(1000)                       # loads the kernel
+    torch.cuda.synchronize()
+    tr = Tracer()
+    before, after = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    tr.enable()
+    try:
+        before.record()
+        with tr.device_span("sleep", "t", device=cuda):
+            torch.cuda._sleep(100_000_000)
+        after.record()
+    finally:
+        tr.disable()
+    (sp,) = tr.spans()
+    after.synchronize()
+    outer_ns = before.elapsed_time(after) * 1e6
+    assert 0.95 * outer_ns <= sp.device_ns <= outer_ns
+    assert sp.dur_ns < sp.device_ns / 10          # the host never waited
+    assert sp.syncs == 0
+
+
+def test_host_syncs_are_counted_per_span(cuda):
+    from repro_torch.obs.trace import Tracer
+
+    x = torch.arange(1, 11, device=cuda)
+    torch.cuda.synchronize()
+    tr = Tracer()
+    tr.enable()
+    try:
+        with tr.span("reads"):
+            for i in range(5):
+                x[i].item()
+            with tr.span("more"):
+                int(x.sum())
+                x.cpu()
+                torch.nonzero(x)
+        with tr.span("explicit"):
+            torch.cuda.synchronize()
+            tr.count_sync()
+        with tr.span("queued"):
+            y = x * 2
+            del y
+    finally:
+        tr.disable()
+    assert {s.name: s.syncs for s in tr.spans()} == {
+        "reads": 8, "more": 3, "explicit": 1, "queued": 0}
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_a_span_holds_its_kernels_on_the_device_trace(cuda):
+    """The profiler's device intervals, mapped onto ``perf_counter_ns`` by
+    ``bench.harness.profile``, of kernels launched and waited for inside a
+    span lie within the span's host interval."""
+    import time
+
+    from bench.harness.profile import DeviceTrace
+    from repro_torch.obs.trace import Tracer
+
+    x = torch.rand(1 << 24, device=cuda)
+    torch.cuda.synchronize()
+    tr = Tracer()
+    tr.enable()
+    try:
+        with DeviceTrace() as dt:
+            with tr.device_span("work", "t", device=cuda):
+                time.sleep(0.01)
+                torch.cuda._sleep(20_000_000)
+                (x * 2).sum().item()
+                time.sleep(0.01)
+    finally:
+        tr.disable()
+    (sp,) = tr.spans()
+    events = dt.device_events()
+    assert len(events) >= 3
+    for start, end, name in events:
+        assert sp.start_ns < start <= end < sp.start_ns + sp.dur_ns, name
+    assert sp.syncs == 1

@@ -7,6 +7,8 @@ counts and DSD strategy; wall times excluded), every stored handle with its
 pads, and the engine's trace spans.
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 
@@ -14,7 +16,7 @@ from conftest import random_edges
 from repro.configs.datalog_workloads import ALL
 from repro.obs.trace import TRACER as REF_TRACER
 from repro_torch.data.program_facts import csda_facts, cspa_facts
-from repro_torch.obs.trace import TRACER
+from repro_torch.obs.trace import PORT_ONLY_SPANS, TRACER
 from torch_parity import assert_runs_equal, run_both
 
 
@@ -63,25 +65,68 @@ def test_ablation_matches(name, ablation):
     assert_runs_equal(ALL[name].program, _edb(name), **ABLATIONS[ablation])
 
 
-def _spans(tracer):
+def _spans_of(spans):
     return [
         (s.name, s.cat, {k: v for k, v in s.args.items() if k != "seconds"})
-        for s in tracer.spans()
+        for s in spans
     ]
 
 
-@pytest.mark.parametrize("name", ["tc", "cspa", "sssp"])
-def test_trace_spans_match(name):
+def _traced_both(name):
     REF_TRACER.enable()
     TRACER.enable()
     try:
         run_both(ALL[name].program, _edb(name))
-        ref_spans, port_spans = _spans(REF_TRACER), _spans(TRACER)
+        return REF_TRACER.spans(), TRACER.spans()
     finally:
         REF_TRACER.disable()
         TRACER.disable()
         REF_TRACER.clear()
         TRACER.clear()
+
+
+@pytest.mark.parametrize("name", ["tc", "cspa", "sssp"])
+def test_trace_spans_match(name):
+    """The port records every span the reference does, with the same
+    attributes, in the same order; its own phase spans
+    (``PORT_ONLY_SPANS``), which no reference span is named as, aside."""
+    ref, port = _traced_both(name)
+    ref_spans = _spans_of(ref)
+    assert not {s[0] for s in ref_spans} & PORT_ONLY_SPANS
+    port_spans = [s for s in _spans_of(port) if s[0] not in PORT_ONLY_SPANS]
     assert len(port_spans) >= 3
     assert [s[:2] for s in port_spans] == [s[:2] for s in ref_spans]
     assert port_spans == ref_spans
+
+
+def test_port_spans_sit_under_their_parents():
+    """TC on the CPU: the front end's spans under ``engine.prep``, the EDB
+    dedup under its upload, PBME's phases under the bit-matrix stratum, once
+    each; none carries device time or a sync on the CPU."""
+    _ref, port = _traced_both("tc")
+    by_id = {s.span_id: s for s in port}
+    seen = Counter(
+        (s.name, by_id[s.parent_id].name if s.parent_id in by_id else None)
+        for s in port if s.name in PORT_ONLY_SPANS
+    )
+    assert seen == {
+        ("engine.prep", None): 1,
+        ("engine.parse", "engine.prep"): 1,
+        ("engine.analyze", "engine.prep"): 1,
+        ("engine.domain", "engine.prep"): 1,
+        ("edb.upload", "engine.prep"): 1,
+        ("edb.dedup", "edb.upload"): 1,
+        ("pbme.build", "stratum.eval"): 1,
+        ("pbme.fixpoint", "stratum.eval"): 1,
+        ("pbme.to_rows", "stratum.eval"): 1,
+    }
+    stratum = next(s for s in port if s.name == "stratum.eval")
+    assert by_id[stratum.parent_id].name == "engine.run"
+    upload = next(s for s in port if s.name == "edb.upload")
+    edges = _edb("tc")["arc"]
+    assert upload.args == {"rel": "arc", "rows_in": len(edges),
+                           "rows": len(np.unique(edges, axis=0))}
+    to_rows = next(s for s in port if s.name == "pbme.to_rows")
+    assert to_rows.args["rows"] == next(
+        s for s in port if s.name == "stratum.eval").args["rows"]
+    assert all(s.device_ns is None and s.syncs == 0 for s in port)
