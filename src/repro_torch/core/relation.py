@@ -22,8 +22,15 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import NOOP_SPAN
 from repro_torch.obs.trace import TRACER as _TRACE
-from repro_torch.relational.sort import SENTINEL, argsort_rows, compact_key, unique_mask
+from repro_torch.relational.sort import (
+    SENTINEL,
+    argsort_rows,
+    compact_key,
+    lexsort_rows,
+    unique_mask,
+)
 
 INT_INF = SENTINEL
 
@@ -70,6 +77,29 @@ def _sort_pad(rows: torch.Tensor, capacity: int, domain: int) -> torch.Tensor:
                      dtype=torch.int32, device=rows.device)
     rows = torch.cat([rows.to(torch.int32), pad], dim=0)
     return rows[argsort_rows(rows, domain)]
+
+
+def _upload_unique(
+    data: np.ndarray, domain: int, device, traced: bool = False
+) -> tuple[torch.Tensor, int]:
+    """``data``'s distinct rows, sorted and padded by :func:`_sort_pad` to
+    ``next_bucket(count)``, and ``count``; the dedup runs on ``device``: one
+    host → device copy, a lexicographic sort (signed, first column primary,
+    as NumPy's ``unique(axis=0)``), the first row of each run kept.  Reading
+    the kept count is one host sync.  ``traced`` records the dedup as an
+    ``edb.dedup`` device span."""
+    rows = torch.tensor(np.ascontiguousarray(data), device=device)
+    if data.size:
+        span = (_TRACE.device_span("edb.dedup", "engine", device=device)
+                if traced else NOOP_SPAN)
+        with span as sp:
+            srt = rows[lexsort_rows(rows)]
+            first = torch.ones(srt.shape[0], dtype=torch.bool, device=srt.device)
+            first[1:] = (srt[1:] != srt[:-1]).any(dim=1)
+            rows = srt[first]
+            sp.set(dropped=len(data) - rows.shape[0])
+    count = rows.shape[0]
+    return _sort_pad(rows, next_bucket(count), domain), count
 
 
 def _compact(rows: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
@@ -168,13 +198,9 @@ class TupleRelation:
             data = data[:, None]
         with _TRACE.device_span("edb.upload", "engine", device=device, rel=name,
                                 rows_in=len(data)) as sp:
-            if data.size:
-                with _TRACE.span("edb.dedup", "engine"):
-                    data = np.unique(data, axis=0)
-            cap = next_bucket(len(data))
-            rows = _sort_pad(torch.as_tensor(data, device=device), cap, domain)
-            sp.set(rows=len(data))
-        return cls(name, data.shape[1], rows, int(len(data)), domain)
+            rows, count = _upload_unique(data, domain, device, traced=True)
+            sp.set(rows=count)
+        return cls(name, data.shape[1], rows, count, domain)
 
     def sorted_by(self, col: int) -> tuple[torch.Tensor, torch.Tensor]:
         """Relation sorted by one column (join index); cached per column."""
@@ -207,11 +233,9 @@ class TupleRelation:
         data = np.asarray(data, np.int32).reshape(-1, self.arity)
         if data.size == 0:
             return self, empty_delta(self.arity, self.device), 0
-        data = np.unique(data, axis=0)
-        cap = next_bucket(len(data))
-        cand = _sort_pad(torch.as_tensor(data, device=self.device), cap, self.domain)
+        cand, count = _upload_unique(data, self.domain, self.device)
         delta_rows, delta_count, _ = set_difference(
-            cand, len(data), self.rows, self.count, self.domain,
+            cand, count, self.rows, self.count, self.domain,
             DSDState(), mode="opsd",
         )
         return self.merge(delta_rows, delta_count), delta_rows, delta_count
@@ -232,11 +256,7 @@ class TupleRelation:
             data = data[((data >= 0) & (data < self.domain)).all(axis=1)]
         if data.size == 0 or self.count == 0:
             return self, empty_delta(self.arity, self.device), 0
-        data = np.unique(data, axis=0)
-        cap = next_bucket(len(data))
-        return self.delete_rows(
-            _sort_pad(torch.as_tensor(data, device=self.device), cap, self.domain)
-        )
+        return self.delete_rows(_upload_unique(data, self.domain, self.device)[0])
 
     def delete_rows(self, cand: torch.Tensor) -> tuple["TupleRelation", torch.Tensor, int]:
         """Device-side delete: ``cand`` already sorted + SENTINEL padded."""

@@ -1007,3 +1007,44 @@ def test_a_span_holds_its_kernels_on_the_device_trace(cuda):
     for start, end, name in events:
         assert sp.start_ns < start <= end < sp.start_ns + sp.dur_ns, name
     assert sp.syncs == 1
+
+
+def test_edb_upload_dedups_on_the_card(cuda, monkeypatch):
+    """``TupleRelation.from_numpy`` on the card equals the same call on the
+    CPU for a G10K edge list with 10 % duplicate rows shuffled in, without
+    NumPy's ``unique``; ``edb.dedup`` carries its device time and the rows it
+    dropped, and the upload waits on the host at most twice."""
+    from repro_torch.core.relation import TupleRelation
+    from repro_torch.data.graphs import gnp_graph
+    from repro_torch.obs.trace import TRACER
+
+    edges = gnp_graph(10_000, 0.001, seed=0).astype(np.int32)
+    rng = np.random.default_rng(0)
+    dups = edges[rng.choice(len(edges), len(edges) // 10, replace=False)]
+    data = rng.permutation(np.concatenate([edges, dups]))
+    host = TupleRelation.from_numpy("arc", data, 10_000, "cpu")
+    TupleRelation.from_numpy("arc", data, 10_000, cuda)        # loads the kernels
+    torch.cuda.synchronize()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("np.unique called during the upload")
+
+    monkeypatch.setattr(np, "unique", refuse)
+    TRACER.enable()
+    try:
+        card = TupleRelation.from_numpy("arc", data, 10_000, cuda)
+        torch.cuda.synchronize()
+    finally:
+        TRACER.disable()
+    spans = {s.name: s for s in TRACER.spans()}
+    TRACER.clear()
+    monkeypatch.undo()
+    assert (card.count, card.capacity) == (host.count, host.capacity) == (
+        len(edges), 1 << 17)
+    assert torch.equal(card.rows.cpu(), host.rows)
+    upload, dedup = spans["edb.upload"], spans["edb.dedup"]
+    assert dedup.parent_id == upload.span_id
+    assert dedup.device_ns is not None and dedup.device_ns > 0
+    assert dedup.args == {"dropped": len(dups)}
+    assert upload.args == {"rel": "arc", "rows_in": len(data), "rows": len(edges)}
+    assert upload.syncs <= 2

@@ -126,6 +126,9 @@ def test_port_spans_sit_under_their_parents():
     edges = _edb("tc")["arc"]
     assert upload.args == {"rel": "arc", "rows_in": len(edges),
                            "rows": len(np.unique(edges, axis=0))}
+    dedup = next(s for s in port if s.name == "edb.dedup")
+    assert dedup.parent_id == upload.span_id
+    assert dedup.args == {"dropped": upload.args["rows_in"] - upload.args["rows"]}
     to_rows = next(s for s in port if s.name == "pbme.to_rows")
     assert to_rows.args["rows"] == next(
         s for s in port if s.name == "stratum.eval").args["rows"]

@@ -79,6 +79,55 @@ def test_merge_sorted_and_dedup(arity, domain):
     _same_array(rd, pd)
 
 
+def _upload_case(name):
+    """(arity, domain, rows) of one upload case; ``rows`` may be 1-D."""
+    rng = np.random.default_rng(len(name))
+    if name == "dense_duplicates":
+        return 2, 12, _rows(rng, 600, 2, 12)
+    if name == "count_under_bucket":        # 200 rows in, 100 distinct: capacity 128
+        distinct = np.unique(_rows(rng, 400, 2, 40), axis=0)[:100]
+        return 2, 40, rng.permutation(np.concatenate([distinct, distinct]))
+    if name == "empty":
+        return 2, 40, np.zeros((0, 2), np.int32)
+    if name == "one_dimensional":
+        return 1, 50, rng.integers(0, 50, size=90).astype(np.int32)
+    if name == "arity3_lexsort":
+        data = _rows(rng, 300, 3, 2_000)
+        return 3, 2_000, np.concatenate([data, data[::4]])
+    assert name == "out_of_domain"            # the compact key aliases such rows
+    data = rng.integers(-3, 45, size=(300, 2)).astype(np.int32)
+    return 2, 40, np.concatenate([data, data[:60], [[2**31 - 1, -2**31]] * 2])
+
+
+@pytest.mark.parametrize("case", ["dense_duplicates", "count_under_bucket", "empty",
+                                  "one_dimensional", "arity3_lexsort", "out_of_domain"])
+def test_upload_dedup_matches_reference(case):
+    """``from_numpy``, ``insert`` and ``delete`` dedup their rows on the
+    device: rows, count and capacity equal the reference's bit for bit."""
+    arity, domain, data = _upload_case(case)
+    r = ref.TupleRelation.from_numpy("t", data, domain)
+    p = port.TupleRelation.from_numpy("t", data, domain, "cpu")
+    _same(r, p)
+    assert p.capacity == port.next_bucket(len(np.unique(data.reshape(-1, arity), axis=0)))
+    if case == "count_under_bucket":
+        assert (p.count, p.capacity) == (100, 128)
+
+    rng = np.random.default_rng(11)
+    base = np.unique(_rows(rng, 60, arity, domain), axis=0)
+    rb = ref.TupleRelation.from_numpy("t", base, domain)
+    pb = port.TupleRelation.from_numpy("t", base, domain, "cpu")
+    r2, rd, rc = rb.insert(data)
+    p2, pd, pc = pb.insert(data)
+    assert rc == pc
+    _same_array(rd, pd)
+    _same(r2, p2)
+    r3, rrem, rcount = r2.delete(data)
+    p3, prem, pcount = p2.delete(data)
+    assert rcount == pcount
+    _same_array(rrem, prem)
+    _same(r3, p3)
+
+
 @pytest.mark.parametrize("op", ["MIN", "MAX"])
 def test_dense_handles_update(op):
     rng = np.random.default_rng(3)
