@@ -35,7 +35,7 @@ from repro_torch.core.ast import Var
 from repro_torch.core.relation import SENTINEL, TupleRelation, next_bucket
 from repro_torch.kernels.bitmm import bitmm, bitmm_fused_delta
 from repro_torch.kernels.ref import pack_bits, unpack_bits
-from repro_torch.obs.trace import TRACER as _TRACE
+from repro_torch.obs.trace import NOOP_SPAN, TRACER as _TRACE
 
 
 # --------------------------------------------------------------------------
@@ -87,43 +87,54 @@ def transpose_packed(packed: torch.Tensor, cols: int) -> torch.Tensor:
 
 
 def tc_fixpoint(
-    arc: torch.Tensor, n: int, *, max_iters: int = 10_000
+    arc: torch.Tensor, n: int, *, max_iters: int = 10_000, span=NOOP_SPAN
 ) -> tuple[torch.Tensor, int]:
     """Transitive closure: M ← M | (Δ ⊛ Arc) until Δ = ∅ (Alg. 2, vectorized).
 
     One fused product per iteration, the last one (an empty Δ) included.
+    ``span`` (the caller's ``pbme.fixpoint``) gets the ``products`` launched.
     """
     m = arc
     delta = arc
-    iters = 0
+    iters = products = 0
     while iters < max_iters:
         delta, m_new = bitmm_fused_delta(delta, arc, m)
+        products += 1
         if int(popcount(delta)) == 0:
             break
         m = m_new
         iters += 1
+    span.set(products=products)
     return m, iters + 1
 
 
 def sg_fixpoint(
-    arc: torch.Tensor, n: int, *, max_iters: int = 10_000
+    arc: torch.Tensor, n: int, *, max_iters: int = 10_000, span=NOOP_SPAN
 ) -> tuple[torch.Tensor, int]:
     """Same generation (Alg. 3):  sg ← Aᵀ⊛A & ~I;  Δ' = Aᵀ⊛Δ⊛A & ~sg.
 
-    One product for the base, two per iteration.
+    One product for the base, two per iteration; ``span`` (the caller's
+    ``pbme.fixpoint``) gets the ``products`` launched.  ``x != y`` masks the
+    base alone: the recursive rule derives ``sg(x, x)`` and keeps it.
     """
-    arc_t = transpose_packed(arc, n)
-    eye = pack_bits(torch.eye(n, dtype=torch.bool, device=arc.device))
+    device = arc.device
+    with _TRACE.device_span("pbme.transpose", "pbme", device=device, n=n):
+        arc_t = transpose_packed(arc, n)
+    with _TRACE.device_span("pbme.mask", "pbme", device=device, n=n):
+        eye = pack_bits(torch.eye(n, dtype=torch.bool, device=device))
     sg = bitmm(arc_t, arc) & ~eye
+    products = 1
     delta = sg
     iters = 0
     while iters < max_iters:
         new = bitmm(bitmm(arc_t, delta), arc)
+        products += 2
         delta = new & ~sg
         if int(popcount(delta)) == 0:
             break
         sg = sg | delta
         iters += 1
+    span.set(products=products)
     return sg, iters + 1
 
 
@@ -318,8 +329,9 @@ class BitmatrixPlan:
         with _TRACE.device_span("pbme.build", "pbme", device=device, n=self.n):
             arc = edges_to_bitmatrix(edb.rows[: edb.count], self.n)
         fixpoint = tc_fixpoint if self.kind == "tc" else sg_fixpoint
-        with _TRACE.device_span("pbme.fixpoint", "pbme", device=device, n=self.n) as sp:
-            m, self.iterations = fixpoint(arc, self.n)
+        with _TRACE.device_span("pbme.fixpoint", "pbme", device=device, n=self.n,
+                                plan=self.kind) as sp:
+            m, self.iterations = fixpoint(arc, self.n, span=sp)
             sp.set(iterations=self.iterations)
         with _TRACE.device_span("pbme.to_rows", "pbme", device=device, n=self.n) as sp:
             pairs = bitmatrix_to_rows(m, self.n)

@@ -56,7 +56,7 @@ from typing import Any
 PORT_ONLY_SPANS = frozenset({
     "engine.prep", "engine.parse", "engine.analyze", "engine.domain",
     "edb.upload", "edb.dedup",
-    "pbme.build", "pbme.fixpoint", "pbme.to_rows",
+    "pbme.build", "pbme.fixpoint", "pbme.transpose", "pbme.mask", "pbme.to_rows",
     "recompute.diff", "recompute.repack",
     "query.wait", "query.lookup",
 })

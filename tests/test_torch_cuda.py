@@ -1048,3 +1048,33 @@ def test_edb_upload_dedups_on_the_card(cuda, monkeypatch):
     assert dedup.args == {"dropped": len(dups)}
     assert upload.args == {"rel": "arc", "rows_in": len(data), "rows": len(edges)}
     assert upload.syncs <= 2
+
+
+@pytest.mark.parametrize("plan", ["sg", "tc"])
+def test_pbme_fixpoint_waits_on_the_host_once_a_round(cuda, plan):
+    """``pbme.fixpoint`` on the card waits on the host once a round, for the
+    termination test's popcount, whichever plan: its ``syncs`` equal its
+    ``iterations``.  SG's transpose and identity mask wait for nothing."""
+    from repro_torch.data.graphs import gnp_graph
+    from repro_torch.obs.trace import TRACER
+
+    arc = gnp_graph(2000, 0.002, seed=0).astype(np.int32)
+    Engine(EngineConfig(backend="bitmatrix"), device=cuda).run(
+        ALL[plan].program, {"arc": arc}, return_numpy=False)       # loads the kernels
+    torch.cuda.synchronize()
+    engine = Engine(EngineConfig(backend="bitmatrix"), device=cuda)
+    TRACER.enable()
+    try:
+        engine.run(ALL[plan].program, {"arc": arc}, return_numpy=False)
+        torch.cuda.synchronize()
+    finally:
+        TRACER.disable()
+    spans = TRACER.spans()
+    TRACER.clear()
+    (fixpoint,) = [s for s in spans if s.name == "pbme.fixpoint"]
+    iterations = engine.stats.total_iterations()
+    assert fixpoint.args["plan"] == plan and fixpoint.args["iterations"] == iterations >= 3
+    assert fixpoint.syncs == iterations and fixpoint.device_ns > 0
+    inner = [s for s in spans if s.name in ("pbme.transpose", "pbme.mask")]
+    assert len(inner) == (2 if plan == "sg" else 0)
+    assert all(s.syncs == 0 and s.device_ns > 0 for s in inner)

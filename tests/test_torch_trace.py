@@ -248,3 +248,55 @@ def test_a_delete_traces_its_recompute_phases():
     assert diff.args == {"pred": "tc", "added": 0, "removed": stats.retracted}
     assert stats.retracted > 0 and repack.args == diff.args
     assert repack.parent_id == diff.parent_id
+
+
+SG = """
+sg(x,y) :- arc(p,x), arc(p,y), x != y.
+sg(x,y) :- arc(a,x), sg(a,b), arc(b,y).
+"""
+
+
+def _traced_evaluation(program):
+    from repro_torch.core import Engine
+    from repro_torch.data.graphs import gnp_graph
+
+    engine = Engine(EngineConfig(backend="bitmatrix"), device="cpu")
+    TRACER.enable()
+    try:
+        engine.run(program, {"arc": gnp_graph(100, 0.02, seed=3).astype(np.int32)})
+        spans = TRACER.spans()
+    finally:
+        TRACER.disable()
+        TRACER.clear()
+    return engine, spans
+
+
+@pytest.mark.parametrize("program,plan", [(SG, "sg"), (TC, "tc")])
+def test_the_fixpoint_span_names_its_plan_and_counts_its_products(program, plan):
+    """SG: one product for the base and two a round, with the arc's
+    transpose and the identity mask spanned inside the fixpoint; TC: one
+    fused product a round, and neither span."""
+    engine, spans = _traced_evaluation(program)
+    (fixpoint,) = [s for s in spans if s.name == "pbme.fixpoint"]
+    iterations = engine.stats.total_iterations()
+    assert iterations >= 3
+    assert fixpoint.args == {"n": engine.domain, "plan": plan, "iterations": iterations,
+                             "products": 1 + 2 * iterations if plan == "sg" else iterations}
+    inner = {s.name: s for s in spans if s.name in ("pbme.transpose", "pbme.mask")}
+    if plan == "sg":
+        assert sorted(inner) == ["pbme.mask", "pbme.transpose"]
+        for s in inner.values():
+            assert s.parent_id == fixpoint.span_id and s.args == {"n": engine.domain}
+    else:
+        assert inner == {}
+
+
+def test_an_untraced_sg_evaluation_records_no_span():
+    from repro_torch.core import Engine
+    from repro_torch.data.graphs import gnp_graph
+
+    TRACER.clear()
+    engine = Engine(EngineConfig(backend="bitmatrix"), device="cpu")
+    engine.run(SG, {"arc": gnp_graph(100, 0.02, seed=3).astype(np.int32)})
+    assert engine.stats.backend_used["sg"] == "bitmatrix"
+    assert TRACER.spans() == []
