@@ -18,13 +18,20 @@ Phases, one output line each:
    the card could take; and ``bitmm`` at the serving increments' shapes
    (M ∈ {1, 7, 128, 129, 1000} rows against the n = 10000 arc, K ∈ {1, 31,
    33, 1024, 10000} at M = n), each with its ms and bound;
+3b. bitpack — PBME's two conversions (``csrc/bitpack.cu``) against their
+   plain versions at G10K, bit for bit: the arc from its shuffled edges with
+   repeats, the closure's 10^8 sorted pairs packed again (the serving
+   layer's re-pack) and the closure's matrix into its 2^27-row table, each
+   with ms, plain ms, the bound and the allocator's peak growth;
 4. tc / 5. sg — the main path: ``Engine.run`` on TC and SG over the paper's
    G10K graph (``gnp_graph(10000, p=0.001, seed=1)``) through the PBME
    kernels.  Launch counts are set to 0 just before and read just after, and
-   each fixpoint must equal the one the plain fixpoint loop computes on the card;
+   each fixpoint must equal the one the plain fixpoint loop computes on the card
+   (both matrices packed by the plain version, not the pack kernel);
    a separate run of the fixpoint loop alone gives ``fixpoint_seconds`` and
    one more, with CUDA events around each product, ``per_launch`` (ms, A's
-   density and the bound of each launch);
+   density and the bound of each launch); ``prep`` takes apart what the
+   benchmark's ``prep_ms.eval`` reads (``prep_split``);
 6. tuple   — the tuple and dense paths (CSDA, Andersen, CC, REACH, SSSP at
    the benchmarks' largest sizes) on the card against the same port on the
    CPU, bit for bit;
@@ -197,9 +204,11 @@ Phases, one output line each:
    branch (``fake_calls`` 0 in this process).
 
 Then a ``kernels`` JSON line (``launches``: each kernel's count on its main
-path — TC and SG at G10K for ``bitmm`` and ``bitmm_fused_delta``, phases 8
-and 9 for ``gather_sum``, whose times are the item table's at the main
-path's shape, with every table and shape of phase 7 under ``tables``;
+path — TC and SG at G10K for ``bitmm``, ``bitmm_fused_delta``,
+``edges_to_bitmatrix`` and ``bitmatrix_to_table``, whose times are phase
+3b's arc and table with its every case under ``tables``, phases 8 and 9 for
+``gather_sum``, whose times are the item table's at the main path's shape,
+with every table and shape of phase 7 under ``tables``;
 ``serve_launches``: the timed serving batches of phase 6b;
 ``durable_launches``: the durability path's own work in phase 6c — writes
 through a durable server, restores with their replay, writes on restored
@@ -245,6 +254,7 @@ B1_OPS_PER_S = 2 * 5.20191304247123e15
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 G10K = 10_000
 REPS = 20
+PREP_REPS = 50         # evaluations in each half of prep_split
 # the two-tower cells of configs/registry.py: serve_p99, serve_bulk, retrieval_cand
 P99_BATCH, P99_CALLS = 512, 50
 BULK_BATCH, BULK_REPS = 262_144, 5
@@ -755,7 +765,7 @@ def serve_phases(dev) -> dict:
     """Phase 6b: the serving layer, one line per workload.  Each timed batch
     runs with the launch counts set to 0 just before and read just after;
     every result is held bit for bit against a from-scratch ``Engine.run``
-    of the final EDB.  Returns the ``bitmm`` kernels' launches in the timed
+    of the final EDB.  Returns the PBME kernels' launches in the timed
     batches."""
     from collections import Counter
 
@@ -763,10 +773,10 @@ def serve_phases(dev) -> dict:
     from repro_torch.core import EngineConfig, bitmatrix
     from repro_torch.data.graphs import gnp_graph
     from repro_torch.data.program_facts import csda_facts
-    from repro_torch.kernels import bitmm as kb
     from repro_torch.serve_datalog import DatalogServer, MaterializedInstance
 
-    totals = {"bitmm": 0, "bitmm_fused_delta": 0}
+    counters = pbme_counters()
+    totals = dict.fromkeys(counters, 0)
     scratch = functools.partial(scratch_fixpoint, dev)
     same = functools.partial(same_as_scratch, dev)
 
@@ -790,8 +800,8 @@ def serve_phases(dev) -> dict:
             return call
 
         torch.cuda.synchronize()
-        kb.bitmm.launches = 0
-        kb.bitmm_fused_delta.launches = 0
+        for c in counters.values():
+            c.launches = 0
         bitmatrix.bitmm, bitmatrix.bitmm_fused_delta = (recording(fn) for fn in saved)
         t0 = time.perf_counter()
         try:
@@ -800,7 +810,7 @@ def serve_phases(dev) -> dict:
         finally:
             bitmatrix.bitmm, bitmatrix.bitmm_fused_delta = saved
         seconds = time.perf_counter() - t0
-        used = {"bitmm": kb.bitmm.launches, "bitmm_fused_delta": kb.bitmm_fused_delta.launches}
+        used = {name: c.launches for name, c in counters.items()}
         for k in totals:
             totals[k] += used[k]
         shapes = {"m_k_count": sorted([m, k, c] for (m, k), c in shapes.items()),
@@ -952,7 +962,8 @@ def serve_phases(dev) -> dict:
     st, used = delete_workload("serve_tc_pbme_delete", ALL["tc"].program,
                                {"arc": gnp_graph(G10K, p=0.001, seed=1)}, "arc",
                                {"backend": "auto"})
-    check(st.modes == {0: "full"} and used["bitmm_fused_delta"] > 0,
+    check(st.modes == {0: "full"} and used["bitmm_fused_delta"] > 0
+          and used["edges_to_bitmatrix"] > 0 and used["bitmatrix_to_table"] > 0,
           f"serve_tc_pbme_delete ran {st.modes} with {used}")
     torch.cuda.empty_cache()
 
@@ -1200,13 +1211,21 @@ def fs_type(path: str) -> str:
 def kernel_counters():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from repro_torch.kernels import bitmm as kb
+    from repro_torch.kernels import bitpack as kp
     from repro_torch.kernels import gather_sum as kg
 
     return {"bitmm": kb.bitmm, "bitmm_fused_delta": kb.bitmm_fused_delta,
-            "gather_sum": kg.gather_sum}
+            "edges_to_bitmatrix": kp.edges_to_bitmatrix,
+            "bitmatrix_to_table": kp.bitmatrix_to_table, "gather_sum": kg.gather_sum}
 
 
-DURABLE_LAUNCHES = {"bitmm": 0, "bitmm_fused_delta": 0, "gather_sum": 0}
+def pbme_counters():
+    """The wrappers of the kernels on PBME's path."""
+    return {name: c for name, c in kernel_counters().items() if name != "gather_sum"}
+
+
+DURABLE_LAUNCHES = {"bitmm": 0, "bitmm_fused_delta": 0, "edges_to_bitmatrix": 0,
+                    "bitmatrix_to_table": 0, "gather_sum": 0}
 
 
 @contextlib.contextmanager
@@ -1666,12 +1685,13 @@ def sharded_tc_phase(dev, mesh, edges, n) -> dict:
     card) in its three schedules, each assembled M held bit for bit against
     ``tc_fixpoint`` on the card with equal iterations.  The launch counts are
     set to 0 just before the three runs and read just after: returned."""
-    from repro_torch.core.bitmatrix import edges_to_bitmatrix, popcount, tc_fixpoint
+    from repro_torch.core.bitmatrix import popcount, tc_fixpoint
     from repro_torch.core.distributed import (
         SCHEDULES, assemble_bitmatrix, tc_fixpoint_sharded,
     )
+    from repro_torch.kernels.ref import edges_to_bitmatrix_plain
 
-    arc = edges_to_bitmatrix(torch.as_tensor(edges, device=dev), n)
+    arc = edges_to_bitmatrix_plain(torch.as_tensor(edges, device=dev), n)
     want, want_iters = tc_fixpoint(arc, n)
     words = want.shape[1]
     for schedule in SCHEDULES:     # uncounted: set up the groups' NCCL communicators
@@ -3032,6 +3052,155 @@ def launch_serve_phase(kind, smi) -> None:
     emit("launch_serve", process_seconds=seconds, launcher=got, card=smi)
 
 
+def bitpack_phase(dev, edges, n) -> dict:
+    """Phase 3b: PBME's two conversions (``csrc/bitpack.cu``) against their
+    plain versions on the card, bit for bit, at the main path's shapes:
+    ``build`` (the arc from ``edges``, shuffled, a tenth of them twice),
+    ``repack`` (the closure's sorted pairs packed again, as the serving layer
+    does after a delete) and ``to_table`` (the closure's matrix into its
+    padded table, 2^27 rows at G10K).  Each with median ms of kernel and
+    plain version, the bound (the bytes it must move at the memory rate: the
+    pairs read or written once, the matrix's words read or zeroed once, the
+    table's padding written once) and the growth of the allocator's peak over
+    one call of each.  Returns the ``kernels`` line's rows by wrapper: the
+    main path's case and, under ``tables``, every case."""
+    from repro_torch.core.bitmatrix import tc_fixpoint
+    from repro_torch.core.relation import next_bucket
+    from repro_torch.kernels import bitpack as kp
+    from repro_torch.kernels.ref import bitmatrix_to_rows_plain, edges_to_bitmatrix_plain
+    from repro_torch.relational.sort import SENTINEL
+
+    rng = np.random.default_rng(SEED)
+    shuffled = np.concatenate([edges, edges[rng.choice(len(edges), len(edges) // 10)]])
+    shuffled = torch.as_tensor(shuffled[rng.permutation(len(shuffled))].astype(np.int32),
+                               device=dev)
+    words = n * -(-n // 32) * 4
+    arc = kp.edges_to_bitmatrix(shuffled, n)
+    closure, _ = tc_fixpoint(arc, n)
+    table, count = kp.bitmatrix_to_table(closure, n)
+    pairs = table[:count]
+    capacity = table.shape[0]
+
+    def plain_table(packed):
+        got = bitmatrix_to_rows_plain(packed, n)
+        rows = torch.full((next_bucket(got.shape[0]), 2), SENTINEL, dtype=torch.int32,
+                          device=dev)
+        rows[: got.shape[0]] = got
+        return rows, got.shape[0]
+
+    def peak_growth(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated() - before
+        del out
+        return grew
+
+    cases = {   # label → (wrapper, kernel, plain, bytes it must move)
+        "build": ("edges_to_bitmatrix", lambda: kp.edges_to_bitmatrix(shuffled, n),
+                  lambda: edges_to_bitmatrix_plain(shuffled, n), shuffled.numel() * 4 + words),
+        "repack": ("edges_to_bitmatrix", lambda: kp.edges_to_bitmatrix(pairs, n),
+                   lambda: edges_to_bitmatrix_plain(pairs, n), count * 8 + words),
+        "to_table": ("bitmatrix_to_table", lambda: kp.bitmatrix_to_table(closure, n),
+                     lambda: plain_table(closure), words + capacity * 8),
+    }
+    rows = {}
+    for label, (name, kernel, plain, nbytes) in cases.items():
+        got, want = kernel(), plain()
+        if name == "bitmatrix_to_table":
+            check(got[1] == want[1], f"bitpack {label}: count {got[1]}, plain {want[1]}")
+            got, want = got[0], want[0]
+        check(torch.equal(got, want), f"bitpack {label} differs from the plain version")
+        err = max_abs_err(got, want)
+        del got, want
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = time_ms(kernel)
+        rows[label] = {"wrapper": name, "max_abs_err": err, "ms": ms, "plain_ms": time_ms(plain),
+                       "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+                       "share_of_bound": bound_ms / ms,
+                       "peak_growth_bytes": peak_growth(kernel),
+                       "plain_peak_growth_bytes": peak_growth(plain)}
+        torch.cuda.empty_cache()
+    emit("bitpack", n=n, edges=int(shuffled.shape[0]), pairs=count, capacity=capacity,
+         cases=rows)
+    del arc, closure, table, pairs, shuffled
+    torch.cuda.empty_cache()
+    main_case = {"edges_to_bitmatrix": "build", "bitmatrix_to_table": "to_table"}
+    return {name: {**rows[label], "tables": {k: v for k, v in rows.items()
+                                             if v["wrapper"] == name}}
+            for name, label in main_case.items()}
+
+
+def prep_split(program, edb, reps: int = PREP_REPS) -> dict:
+    """What the benchmark's ``prep_ms.eval`` reads, taken apart: ``reps``
+    evaluations as its eval cell runs them (a fresh ``Engine``,
+    ``return_numpy=False``, a synchronise, the store dropped before the next
+    one), each one's host ms less its strata's ``stratum_seconds``, first as
+    the engine clocks a stratum, then with the card synchronised just before
+    each stratum's clock stops.  The difference of the two is the device work
+    a stratum leaves queued when its clock stops.  Each gives medians of the
+    engine's construction, the front end (``Engine.run`` up to the first
+    stratum), the time after the last stratum, and per evaluation the
+    allocator's ``cudaMalloc`` and ``cudaFree`` calls and retries."""
+    from repro_torch.core import Engine, EngineConfig
+
+    run, stratum, note = Engine.run, Engine._eval_stratum, Engine._note_stratum_actuals
+    marks, synced = {}, [False]
+
+    def timed_run(self, *args, **kwargs):
+        marks["run"] = time.perf_counter()
+        return run(self, *args, **kwargs)
+
+    def timed_stratum(self, *args, **kwargs):
+        marks.setdefault("stratum", time.perf_counter())
+        out = stratum(self, *args, **kwargs)
+        marks["stratum_end"] = time.perf_counter()
+        return out
+
+    def clocked(self, *args, **kwargs):
+        if synced[0]:
+            torch.cuda.synchronize()
+        return note(self, *args, **kwargs)
+
+    stats_keys = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+    out = {}
+    Engine.run, Engine._eval_stratum, Engine._note_stratum_actuals = (
+        timed_run, timed_stratum, clocked)
+    try:
+        for mode in ("as_clocked", "synced"):
+            synced[0] = mode == "synced"
+            parts = {k: [] for k in ("prep_ms", "construct_ms", "front_ms", "after_ms")}
+            store = None
+            for i in range(reps + 3):          # 3 to warm up
+                store = None
+                marks.clear()
+                if i == 3:
+                    torch.cuda.synchronize()
+                    before = torch.cuda.memory_stats()
+                t0 = time.perf_counter()
+                engine = Engine(EngineConfig(), device="cuda")
+                engine.run(program, edb, return_numpy=False)
+                torch.cuda.synchronize()
+                store = engine.take_store()
+                host = time.perf_counter() - t0
+                if i < 3:
+                    continue
+                parts["prep_ms"].append((host - sum(engine.stats.stratum_seconds.values())) * 1e3)
+                parts["construct_ms"].append((marks["run"] - t0) * 1e3)
+                parts["front_ms"].append((marks["stratum"] - marks["run"]) * 1e3)
+                parts["after_ms"].append((t0 + host - marks["stratum_end"]) * 1e3)
+            after = torch.cuda.memory_stats()
+            del store
+            out[mode] = {**{k: statistics.median(v) for k, v in parts.items()},
+                         **{k: (after.get(k, 0) - before.get(k, 0)) / reps for k in stats_keys}}
+    finally:
+        Engine.run, Engine._eval_stratum, Engine._note_stratum_actuals = run, stratum, note
+    out["queued_ms"] = out["as_clocked"]["prep_ms"] - out["synced"]["prep_ms"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no GPU to drive",
@@ -3044,15 +3213,14 @@ def main() -> int:
         from repro_torch.kernels import gather_sum as kg
         from repro_torch.models.recsys import TwoTower
         from repro_torch.core import Engine, EngineConfig
-        from repro_torch.core.bitmatrix import (
-            edges_to_bitmatrix, popcount, sg_fixpoint, tc_fixpoint, transpose_packed,
-        )
+        from repro_torch.core.bitmatrix import popcount, sg_fixpoint, tc_fixpoint, transpose_packed
         from repro_torch.data.graphs import gnp_graph, rmat_graph
         from repro_torch.data.program_facts import andersen_facts, csda_facts
         from repro_torch.kernels import _build
         from repro_torch.kernels import bitmm as kb
         from repro_torch.kernels.ref import (
-            bitmm_fused_delta_plain, bitmm_plain, pack_bits, unpack_bits,
+            bitmm_fused_delta_plain, bitmm_plain, edges_to_bitmatrix_plain, pack_bits,
+            unpack_bits,
         )
     except ImportError as err:
         print(f"chip_smoke: cannot import the port ({err}); run it from a checkout "
@@ -3100,7 +3268,7 @@ def main() -> int:
         compared += 1
 
     edges = gnp_graph(G10K, p=0.001, seed=1)
-    arc = edges_to_bitmatrix(torch.as_tensor(edges, device=dev), G10K)
+    arc = edges_to_bitmatrix_plain(torch.as_tensor(edges, device=dev), G10K)
     check(tuple(arc.shape) == (G10K, 313), f"arc shape {tuple(arc.shape)}")
     def mixed_a():
         """Empty, arc-sparse and dense 1024-bit K stages in turn."""
@@ -3175,6 +3343,9 @@ def main() -> int:
 
     del main_a, cur
     torch.cuda.empty_cache()
+    bitpack_timed = bitpack_phase(dev, edges, G10K)
+    for name, row in bitpack_timed.items():
+        err[name] = max(v["max_abs_err"] for v in row["tables"].values())
 
     # -- 4/5. the main path: PBME TC and SG at G10K --------------------------
     def plain_tc(arc_m, _n):
@@ -3196,12 +3367,14 @@ def main() -> int:
                 return sg, iters + 1
             sg, iters = sg | delta, iters + 1
 
+    pbme = pbme_counters()
+
     def reset_launches():
-        kb.bitmm.launches = 0
-        kb.bitmm_fused_delta.launches = 0
+        for c in pbme.values():
+            c.launches = 0
 
     def read_launches():
-        return {"bitmm": kb.bitmm.launches, "bitmm_fused_delta": kb.bitmm_fused_delta.launches}
+        return {name: c.launches for name, c in pbme.items()}
 
     def per_launch_ms(fixpoint, arc_m, n):
         """One more fixpoint run, with CUDA events around each product: its
@@ -3232,7 +3405,7 @@ def main() -> int:
                  "bound_ms": bitmm_bound(a, n, n, 3 if name == "bitmm_fused_delta" else 1)[0]}
                 for name, a, start, end in records]
 
-    launches = {"bitmm": 0, "bitmm_fused_delta": 0}
+    launches = dict.fromkeys(pbme, 0)
     for wl, plain, fixpoint in ((TC, plain_tc, tc_fixpoint), (SG, plain_sg, sg_fixpoint)):
         eng = Engine(EngineConfig(backend="auto"))
         torch.cuda.synchronize()
@@ -3247,11 +3420,14 @@ def main() -> int:
         check(eng.stats.backend_used[wl.name] == "bitmatrix", f"{wl.name} left PBME")
         expect = ({"bitmm": 0, "bitmm_fused_delta": iters} if wl is TC
                   else {"bitmm": 1 + 2 * iters, "bitmm_fused_delta": 0})
+        expect.update(edges_to_bitmatrix=1, bitmatrix_to_table=1)   # the arc; the IDB's rows
         check(used == expect, f"{wl.name} launches {used}, expected {expect}")
         launches = {k: launches[k] + used[k] for k in launches}
 
-        got = edges_to_bitmatrix(torch.as_tensor(out[wl.name], device=dev), n)
-        arc_n = edges_to_bitmatrix(torch.as_tensor(edges, device=dev), n)
+        # the plain loop's input and the engine's output packed by the plain
+        # version, so that neither side of the comparison runs the pack kernel
+        got = edges_to_bitmatrix_plain(torch.as_tensor(out[wl.name], device=dev), n)
+        arc_n = edges_to_bitmatrix_plain(torch.as_tensor(edges, device=dev), n)
         t1 = time.perf_counter()
         want, plain_iters = plain(arc_n, n)
         torch.cuda.synchronize()
@@ -3269,7 +3445,8 @@ def main() -> int:
              stratum_seconds=eng.stats.stratum_seconds[0],
              fixpoint_seconds=fixpoint_seconds, to_host_seconds=seconds - eng.stats.total_seconds,
              plain_fixpoint_seconds=plain_seconds, launches=used,
-             per_launch=per_launch_ms(fixpoint, arc_n, n))
+             per_launch=per_launch_ms(fixpoint, arc_n, n),
+             prep=prep_split(wl.program, {"arc": edges}))
         del out, got, want, arc_n
         torch.cuda.empty_cache()
 
@@ -3305,8 +3482,7 @@ def main() -> int:
         emit("tuple", workload=name, facts={k: len(v) for k, v in g_out.items()},
              iterations=g_key[0], backends=g_key[1],
              dsd=sorted({r[-1] for r in g_key[2]}), gpu_seconds=g_s, cpu_seconds=c_s)
-    check(read_launches() == {"bitmm": 0, "bitmm_fused_delta": 0},
-          "the tuple workloads launched PBME kernels")
+    check(not any(read_launches().values()), "the tuple workloads launched PBME kernels")
 
     # -- 6b. the serving layer -------------------------------------------------------
     # counted apart: ``launches`` stays the TC/SG main path's count
@@ -3402,7 +3578,7 @@ def main() -> int:
           f"the durability path launched {DURABLE_LAUNCHES}")
 
     # no real tensor took a wrapper's shape-only branch
-    fake = {name: c.fake_calls for name, c in kernel_counters().items()}
+    fake = {name: getattr(c, "fake_calls", 0) for name, c in kernel_counters().items()}
     check(not any(fake.values()), f"real tensors took the shape-only branch: {fake}")
 
     # -- report --------------------------------------------------------------
@@ -3411,17 +3587,25 @@ def main() -> int:
         "bitmm_fused_delta": (
             "bitmm.cu",
             "src/repro/kernels/bitmm.py:131 (bitmm_fused_delta_call, body _bitmm_fused_kernel)"),
+        "edges_to_bitmatrix": (
+            "bitpack.cu",
+            "no TPU kernel: src/repro/core/bitmatrix.py:64 (edges_to_bitmatrix, numpy)"),
+        "bitmatrix_to_table": (
+            "bitpack.cu",
+            "no TPU kernel: src/repro/core/bitmatrix.py:76 (bitmatrix_to_edges, numpy)"),
         "gather_sum": (
             "gather_sum.cu",
             "src/repro/kernels/gather_sum.py:49 (gather_sum_call, body _gather_sum_kernel)"),
     }
     # gather_sum: the item table at the main path's shape, with every table and
-    # shape of phase 7 beside it
-    timed = {**main_shape["dense"], "gather_sum": gather_shapes["item"]}
+    # shape of phase 7 beside it; the conversions: G10K's arc and its closure's
+    # table, with phase 3b's cases beside them
+    timed = {**main_shape["dense"], **bitpack_timed, "gather_sum": gather_shapes["item"]}
     tables = {"gather_sum": {
         label: {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                         "share_of_bound", "idx")}
-        for label, v in gather_shapes.items()}}
+        for label, v in gather_shapes.items()},
+        **{name: row["tables"] for name, row in bitpack_timed.items()}}
     print(json.dumps({"kernels": [
         {
             "name": name,

@@ -32,8 +32,9 @@ import torch
 
 from repro_torch.core.analyzer import Stratum
 from repro_torch.core.ast import Var
-from repro_torch.core.relation import SENTINEL, TupleRelation, next_bucket
+from repro_torch.core.relation import TupleRelation
 from repro_torch.kernels.bitmm import bitmm, bitmm_fused_delta
+from repro_torch.kernels.bitpack import bitmatrix_to_table, edges_to_bitmatrix
 from repro_torch.kernels.ref import pack_bits, unpack_bits
 from repro_torch.obs.trace import NOOP_SPAN, TRACER as _TRACE
 
@@ -41,18 +42,6 @@ from repro_torch.obs.trace import NOOP_SPAN, TRACER as _TRACE
 # --------------------------------------------------------------------------
 # packed bit-matrix primitives
 # --------------------------------------------------------------------------
-
-
-def edges_to_bitmatrix(edges: torch.Tensor, n: int) -> torch.Tensor:
-    """int32[m, 2] edge list (on the target device) → packed int32[n, ceil(n/32)]."""
-    dense = torch.zeros((n, n), dtype=torch.bool, device=edges.device)
-    dense[edges[:, 0].long(), edges[:, 1].long()] = True
-    return pack_bits(dense)
-
-
-def bitmatrix_to_rows(packed: torch.Tensor, n: int) -> torch.Tensor:
-    """Set bits as ``int32[count, 2]`` (row, col) pairs in lexicographic order."""
-    return torch.nonzero(unpack_bits(packed, n)).to(torch.int32)
 
 
 def _popcount_words(packed: torch.Tensor) -> torch.Tensor:
@@ -326,19 +315,16 @@ class BitmatrixPlan:
         (the same sorted rows, count and capacity as ``from_numpy``)."""
         edb = store[self.edb]
         device = edb.rows.device
-        with _TRACE.device_span("pbme.build", "pbme", device=device, n=self.n):
+        with _TRACE.device_span("pbme.build", "pbme", device=device, n=self.n) as sp:
             arc = edges_to_bitmatrix(edb.rows[: edb.count], self.n)
+            sp.set(rows=edb.count)
         fixpoint = tc_fixpoint if self.kind == "tc" else sg_fixpoint
         with _TRACE.device_span("pbme.fixpoint", "pbme", device=device, n=self.n,
                                 plan=self.kind) as sp:
             m, self.iterations = fixpoint(arc, self.n, span=sp)
             sp.set(iterations=self.iterations)
         with _TRACE.device_span("pbme.to_rows", "pbme", device=device, n=self.n) as sp:
-            pairs = bitmatrix_to_rows(m, self.n)
-            count = pairs.shape[0]
-            rows = torch.full((next_bucket(count), 2), SENTINEL, dtype=torch.int32,
-                              device=pairs.device)
-            rows[:count] = pairs
+            rows, count = bitmatrix_to_table(m, self.n)
             sp.set(rows=count)
         store[self.idb] = TupleRelation(self.idb, 2, rows, count, engine.domain)
 

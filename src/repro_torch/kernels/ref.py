@@ -10,6 +10,9 @@ entry counts matching bits, at most K < 2**24, so float32 holds it exactly;
 TF32 keeps the {0,1} inputs exact and accumulates in float32 as well, so the
 result is exact with or without ``allow_tf32``.
 
+``edges_to_bitmatrix_plain`` and ``bitmatrix_to_rows_plain`` convert between
+(row, col) pairs and a packed n × n matrix through a dense ``bool[n, n]``.
+
 ``gather_sum_plain`` is the embedding-bag / ELL SpMM row sum, in float32.
 """
 
@@ -44,6 +47,18 @@ def pack_bits(dense: torch.Tensor) -> torch.Tensor:
         dense = torch.cat([dense, dense.new_zeros((n, pad))], dim=1)
     d = dense.reshape(n, -1, WORD).to(torch.int64)
     return (d << _shifts(dense.device).to(torch.int64)).sum(dim=-1).to(torch.int32)
+
+
+def edges_to_bitmatrix_plain(edges: torch.Tensor, n: int) -> torch.Tensor:
+    """int32[m, 2] edge list (on the target device) → packed int32[n, ceil(n/32)]."""
+    dense = torch.zeros((n, n), dtype=torch.bool, device=edges.device)
+    dense[edges[:, 0].long(), edges[:, 1].long()] = True
+    return pack_bits(dense)
+
+
+def bitmatrix_to_rows_plain(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Set bits as ``int32[count, 2]`` (row, col) pairs in lexicographic order."""
+    return torch.nonzero(unpack_bits(packed, n)).to(torch.int32)
 
 
 def bitmm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

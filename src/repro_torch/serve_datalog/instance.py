@@ -88,10 +88,9 @@ from repro_torch.analysis.demand import DemandTransform
 from repro_torch.core.analyzer import Stratum
 from repro_torch.core.ast import Program
 from repro_torch.core.bitmatrix import (
-    bitmatrix_to_rows,
+    bitmatrix_to_table,
     edges_to_bitmatrix,
     eligible_plan,
-    popcount,
     sg_increment,
     tc_increment,
 )
@@ -110,7 +109,6 @@ from repro_torch.core.setdiff import DSDState, set_difference
 from repro_torch.core.versioned_store import Snapshot, VersionedStore
 from repro_torch.obs.explain import PlanEstimate, estimate_plan, estimate_query_rows
 from repro_torch.obs.trace import TRACER as _TRACE
-from repro_torch.relational.sort import SENTINEL
 from repro_torch.serve_datalog.plan_cache import (
     ADMISSION_CONFIG,
     CompiledPlan,
@@ -1259,13 +1257,9 @@ class MaterializedInstance:
         fix = tc_increment if plan.kind == "tc" else sg_increment
         m_new, iters = fix(m_old, st["arc"], d_arc, txn.domain)
         st["m"] = m_new
-        new_pairs = m_new & ~m_old
-        count = int(popcount(new_pairs))
+        dr, count = bitmatrix_to_table(m_new & ~m_old, txn.domain,
+                                       self.engine.config.capacity_min)   # sorted rows
         if count:
-            pairs = bitmatrix_to_rows(new_pairs, txn.domain)   # sorted rows
-            cap = next_bucket(count, self.engine.config.capacity_min)
-            dr = torch.full((cap, 2), SENTINEL, dtype=torch.int32, device=pairs.device)
-            dr[:count] = pairs
             txn.store[plan.idb] = txn.store[plan.idb].merge(dr, count)
             changed[plan.idb] = TupleView(dr, count, txn.domain)
         return iters, count

@@ -12,10 +12,12 @@ import torch
 
 from conftest import random_edges
 from repro.core import bitmatrix as ref
+from repro.core.relation import SENTINEL, next_bucket
 from repro.core.relation import TupleRelation as RefTupleRelation
 from repro_torch.core import bitmatrix as port
 from repro_torch.core.relation import TupleRelation as PortTupleRelation
 from repro_torch.interop import bitmatrix_to_reference
+from repro_torch.kernels import bitpack
 
 GRAPHS = [(40, 90, 0), (120, 200, 1), (200, 420, 2)]   # (n, m, seed)
 
@@ -37,9 +39,8 @@ def test_primitives_match(n, m, seed):
     _same(r_arc, p_arc)
     _same(ref.transpose_packed(r_arc, n), port.transpose_packed(p_arc, n))
     assert int(ref.popcount(r_arc)) == int(port.popcount(p_arc))
-    np.testing.assert_array_equal(
-        ref.bitmatrix_to_edges(r_arc, n), port.bitmatrix_to_rows(p_arc, n).numpy()
-    )
+    rows, count = port.bitmatrix_to_table(p_arc, n)
+    np.testing.assert_array_equal(ref.bitmatrix_to_edges(r_arc, n), rows[:count].numpy())
 
 
 @pytest.mark.parametrize("kind", ["tc", "sg"])
@@ -70,14 +71,71 @@ def test_closure_rows_match_from_numpy():
     r_m, _ = ref.tc_fixpoint(r_arc, n)
     p_m, _ = port.tc_fixpoint(p_arc, n)
     expect = RefTupleRelation.from_numpy("tc", ref.bitmatrix_to_edges(r_m, n), n)
-    pairs = port.bitmatrix_to_rows(p_m, n)
-    assert pairs.shape[0] == expect.count > 1000
+    rows, count = port.bitmatrix_to_table(p_m, n)
+    assert count == expect.count > 1000
+    np.testing.assert_array_equal(np.asarray(expect.rows), rows.numpy())
     store = {"arc": PortTupleRelation.from_numpy("arc", _edges, n, "cpu")}
     plan = port.BitmatrixPlan("tc", "tc", "arc", n)
     plan.execute(store, SimpleNamespace(domain=n))
     got = store["tc"]
     assert (got.count, got.capacity) == (expect.count, expect.capacity)
     np.testing.assert_array_equal(np.asarray(expect.rows), got.rows.numpy())
+
+
+def _conversion_case(n, kind, seed):
+    """Edges for a conversion case, shuffled and with a third of them twice."""
+    rng = np.random.default_rng(seed)
+    if kind == "empty":
+        edges = np.zeros((0, 2), np.int32)
+    elif kind == "full":
+        edges = np.argwhere(np.ones((n, n), bool)).astype(np.int32)
+    elif kind == "sign_bit":            # column 31 of a word: bit 31, the sign of int32
+        edges = np.array([[0, 31], [n - 1, 31], [n // 2, 31]], np.int32) % n
+    else:
+        edges = random_edges(rng, n, 3 * n)
+    edges = np.concatenate([edges, edges[: len(edges) // 3]])
+    return edges[rng.permutation(len(edges))]
+
+
+@pytest.mark.parametrize("n, kind, capacity_min", [
+    (1, "empty", 128), (1, "full", 128), (31, "random", 128), (32, "full", 128),
+    (32, "sign_bit", 128), (33, "sign_bit", 128), (33, "random", 128),
+    (100, "random", 128), (100, "random", 4096), (100, "empty", 256), (100, "full", 128),
+])
+def test_conversions_match_the_reference(n, kind, capacity_min):
+    """The conversions' CPU path and ``BitmatrixPlan.execute`` give the
+    reference's packed matrix and its rows, count and capacity bit for bit,
+    from unsorted edges with repeats."""
+    edges = _conversion_case(n, kind, seed=n)
+    r_arc = ref.edges_to_bitmatrix(edges, n)
+    p_arc = bitpack.edges_to_bitmatrix(torch.as_tensor(edges), n)
+    _same(r_arc, p_arc)
+    pairs = ref.bitmatrix_to_edges(r_arc, n)
+    want = np.full((next_bucket(len(pairs), capacity_min), 2), SENTINEL, np.int32)
+    want[: len(pairs)] = pairs
+    rows, count = bitpack.bitmatrix_to_table(p_arc, n, capacity_min)
+    assert count == len(pairs) == len(np.unique(edges, axis=0))
+    np.testing.assert_array_equal(rows.numpy(), want)
+
+    r_m, _ = ref.tc_fixpoint(r_arc, n)
+    expect = RefTupleRelation.from_numpy("tc", ref.bitmatrix_to_edges(r_m, n), n)
+    store = {"arc": PortTupleRelation.from_numpy("arc", edges, n, "cpu")}
+    port.BitmatrixPlan("tc", "tc", "arc", n).execute(store, SimpleNamespace(domain=n))
+    got = store["tc"]
+    assert (got.count, got.capacity) == (expect.count, expect.capacity)
+    np.testing.assert_array_equal(np.asarray(expect.rows), got.rows.numpy())
+
+
+@pytest.mark.parametrize("n", [1, 33, 100])
+def test_pairs_outside_the_matrix_are_skipped(n):
+    """A pair outside ``[0, n) × [0, n)`` sets no bit: the CPU path gives the
+    reference's matrix of the pairs inside, as the card does."""
+    rng = np.random.default_rng(n)
+    inside = random_edges(rng, n, 3 * n)
+    outside = np.array([[n, 0], [0, n], [-1, 0], [0, -1], [n + 40, n + 40]], np.int32)
+    edges = np.concatenate([inside, outside])
+    edges = edges[rng.permutation(len(edges))]
+    _same(ref.edges_to_bitmatrix(inside, n), bitpack.edges_to_bitmatrix(torch.as_tensor(edges), n))
 
 
 # --------------------------------------------------------------------------

@@ -29,9 +29,10 @@ from repro_torch.data.graphs import random_graph
 from repro_torch.configs.two_tower_retrieval import SMOKE
 from repro_torch.data.recsys_stream import RecsysStream
 from repro_torch.kernels import bitmm as kb
+from repro_torch.kernels import bitpack as kp
 from repro_torch.kernels import gather_sum as kg
 from repro_torch.kernels.ref import (
-    bitmm_fused_delta_plain, bitmm_plain, gather_sum_plain, pack_bits,
+    bitmm_fused_delta_plain, bitmm_plain, edges_to_bitmatrix_plain, gather_sum_plain, pack_bits,
 )
 from repro_torch.models import transformer as tf
 from repro_torch.models.recsys import TwoTower
@@ -1078,3 +1079,142 @@ def test_pbme_fixpoint_waits_on_the_host_once_a_round(cuda, plan):
     inner = [s for s in spans if s.name in ("pbme.transpose", "pbme.mask")]
     assert len(inner) == (2 if plan == "sg" else 0)
     assert all(s.syncs == 0 and s.device_ns > 0 for s in inner)
+
+
+# --------------------------------------------------------------------------
+# the row <-> bit-matrix conversions (csrc/bitpack.cu)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n, density", [(1, 0.0), (1, 1.0), (31, 0.3), (32, 1.0), (33, 0.5),
+                                        (100, 0.02), (1000, 0.001), (3000, 0.3)])
+def test_bitpack_kernels_match_plain(cuda, n, density):
+    """Both conversions on the card equal their plain versions on the CPU:
+    the matrix from shuffled edges with repeats and pairs outside the matrix
+    (skipped on both devices), and the table's rows, count, capacity and
+    SENTINEL tail; bits past column n are ignored."""
+    rng = np.random.default_rng(n)
+    dense = rng.random((n, n)) < density
+    dense[:, 31::32] |= rng.random((n, len(range(31, n, 32)))) < 0.5     # sign bits
+    inside = np.argwhere(dense).astype(np.int32)
+    outside = np.array([[n, 0], [0, n], [-1, 0], [0, -1]], np.int32)
+    edges = np.concatenate([inside, inside[: len(inside) // 3], outside])
+    edges = torch.as_tensor(edges[rng.permutation(len(edges))])
+    want_m = edges_to_bitmatrix_plain(torch.as_tensor(inside), n)
+    assert torch.equal(kp.edges_to_bitmatrix(edges, n), want_m)          # the CPU path
+    before = kp.edges_to_bitmatrix.launches
+    got_m = kp.edges_to_bitmatrix(edges.to(cuda), n)
+    assert kp.edges_to_bitmatrix.launches - before == 1
+    assert torch.equal(got_m.cpu(), want_m)
+    junk = got_m.clone()
+    if n % 32:
+        junk[:, -1] |= -(1 << (n % 32))                     # every bit at columns >= n
+    for capacity_min in (128, 1 << 20):
+        want_rows, want_count = kp.bitmatrix_to_table(want_m, n, capacity_min)
+        assert want_count == int(dense.sum())
+        before = kp.bitmatrix_to_table.launches
+        for packed in (got_m, junk):
+            rows, count = kp.bitmatrix_to_table(packed, n, capacity_min)
+            assert count == want_count and torch.equal(rows.cpu(), want_rows)
+        assert kp.bitmatrix_to_table.launches - before == 2
+    torch.cuda.synchronize()
+
+
+def test_bitpack_kernels_at_the_g10k_closure(cuda):
+    """G10K's arc from shuffled edges with repeats, its 10^8-pair closure as a
+    table, and that table packed again (the serving layer's re-pack) on the
+    card equal the plain versions; pairs outside the matrix are skipped."""
+    from repro_torch.core.bitmatrix import tc_fixpoint
+    from repro_torch.data.graphs import gnp_graph
+
+    n = 10_000
+    edges = gnp_graph(n, 0.001, seed=0).astype(np.int32)
+    rng = np.random.default_rng(0)
+    edges = np.concatenate([edges, edges[rng.choice(len(edges), len(edges) // 10)]])
+    edges = torch.as_tensor(edges[rng.permutation(len(edges))])
+    arc = kp.edges_to_bitmatrix(edges.to(cuda), n)
+    assert torch.equal(arc.cpu(), edges_to_bitmatrix_plain(edges, n))
+    m, _ = tc_fixpoint(arc, n)
+    rows, count = kp.bitmatrix_to_table(m, n)
+    want_rows, want_count = kp.bitmatrix_to_table(m.cpu(), n)
+    assert count == want_count > 9 * 10**7 and rows.shape == want_rows.shape == (1 << 27, 2)
+    assert torch.equal(rows.cpu(), want_rows)
+    del want_rows
+    outside = torch.tensor([[n, 0], [0, n], [-1, 5], [5, -1]], dtype=torch.int32, device=cuda)
+    assert torch.equal(kp.edges_to_bitmatrix(torch.cat([outside, rows[:count]]), n), m)
+    torch.cuda.synchronize()
+
+
+def test_to_rows_allocates_only_the_table(cuda):
+    """The matrix -> table conversion of a full 10^4 x 10^4 matrix grows the
+    allocator's peak by the 2^27-row table and the row counts, under 1.2 GB
+    (the dense unpack and ``torch.nonzero`` took 2.4 GB)."""
+    from repro_torch.relational.sort import SENTINEL
+
+    n = 10_000
+    full = torch.full((n, (n + 31) // 32), -1, dtype=torch.int32, device=cuda)
+    kp.bitmatrix_to_table(full[:8], n)                              # loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    rows, count = kp.bitmatrix_to_table(full, n)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before < 1.2e9
+    assert count == n * n and rows.shape == (1 << 27, 2)
+    picks = rows[torch.tensor([0, 1, n, count - 1, count, (1 << 27) - 1], device=cuda)]
+    assert picks.tolist() == [[0, 0], [0, 1], [1, 0], [n - 1, n - 1], [SENTINEL] * 2,
+                              [SENTINEL] * 2]
+
+
+@pytest.mark.parametrize("plan", ["tc", "sg"])
+def test_pbme_conversions_launch_once_an_evaluation(cuda, plan):
+    """A G10K evaluation on the card packs its arc with one launch and turns
+    its fixpoint into rows with one: ``pbme.build`` waits on the host for
+    nothing and ``pbme.to_rows`` once, for the count."""
+    from repro_torch.data.graphs import gnp_graph
+    from repro_torch.obs.trace import TRACER
+
+    arc = gnp_graph(10_000, 0.001, seed=0).astype(np.int32)
+    Engine(EngineConfig(backend="bitmatrix"), device=cuda).run(
+        ALL[plan].program, {"arc": arc}, return_numpy=False)       # loads the kernels
+    torch.cuda.synchronize()
+    before = kp.edges_to_bitmatrix.launches, kp.bitmatrix_to_table.launches
+    TRACER.enable()
+    try:
+        Engine(EngineConfig(backend="bitmatrix"), device=cuda).run(
+            ALL[plan].program, {"arc": arc}, return_numpy=False)
+        torch.cuda.synchronize()
+    finally:
+        TRACER.disable()
+    spans = {s.name: s for s in TRACER.spans()}
+    TRACER.clear()
+    assert (kp.edges_to_bitmatrix.launches - before[0],
+            kp.bitmatrix_to_table.launches - before[1]) == (1, 1)
+    build, to_rows = spans["pbme.build"], spans["pbme.to_rows"]
+    assert build.args == {"n": 10_000, "rows": len(arc)} and build.syncs == 0
+    assert to_rows.syncs == 1 and to_rows.args["rows"] > 9 * 10**7
+
+
+def test_delete_and_reinsert_on_cuda_match_cpu(cuda):
+    """A delete (the full recompute and the re-pack of the IDB) and the
+    re-insert (the PBME increment) on the card equal the same transactions on
+    the CPU: the IDB's rows, count and capacity, and the resident matrices."""
+    edges = random_graph(400, 900, seed=7)
+    held = edges[::50]
+    insts = {
+        dev: MaterializedInstance(ALL["tc"].program, {"arc": edges}, EngineConfig(),
+                                  cache=PlanCache(), device=dev)
+        for dev in ("cuda", "cpu")
+    }
+    before = kp.edges_to_bitmatrix.launches, kp.bitmatrix_to_table.launches
+    for op, mode in (("delete", "full"), ("insert", "bitmatrix")):
+        stats = {dev: inst.apply_txn([(op, "arc", held)]) for dev, inst in insts.items()}
+        torch.cuda.synchronize()
+        assert stats["cuda"].modes == stats["cpu"].modes == {0: mode}
+        got, want = (insts[d].vstore.latest().handles["tc"] for d in ("cuda", "cpu"))
+        assert (got.count, got.capacity) == (want.count, want.capacity)
+        assert torch.equal(got.rows.cpu(), want.rows)
+        for key in ("arc", "m"):
+            assert torch.equal(insts["cuda"]._bm[0][key].cpu(), insts["cpu"]._bm[0][key])
+    assert kp.edges_to_bitmatrix.launches > before[0]
+    assert kp.bitmatrix_to_table.launches > before[1]
