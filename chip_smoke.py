@@ -1289,7 +1289,8 @@ def same_epochs(dev, label, want_inst, got_inst):
         check((want.meta or {}).keys() == (got.meta or {}).keys(), f"{label}: PBME strata")
         for idx, st in (want.meta or {}).items():
             for f in ("arc", "m"):
-                check(torch.equal(got.meta[idx][f], st[f]), f"{label}: PBME {f} differs")
+                check(torch.equal(getattr(got.meta[idx], f), getattr(st, f)),
+                      f"{label}: PBME {f} differs")
 
 
 def durability_phases(dev) -> dict:
@@ -1443,19 +1444,10 @@ def durability_phases(dev) -> dict:
         srv, baseline = write_timing(lambda: DatalogServer(live, durability=cfg))
         baseline = sized(baseline, list_snapshots(cfg.root)[-1])
         srv.close()
-        packs = {"n": 0}
-        real_packed = MaterializedInstance._packed
-
-        def counted_packed(self, handle, domain):
-            packs["n"] += 1
-            return real_packed(self, handle, domain)
-
-        MaterializedInstance._packed = counted_packed
-        try:
-            restored, restore = restore_timing("g10k")
-        finally:
-            MaterializedInstance._packed = real_packed
-        check(packs["n"] == 0, f"durable_g10k: the restore re-packed {packs['n']} matrices")
+        packs = DURABLE_LAUNCHES["edges_to_bitmatrix"]
+        restored, restore = restore_timing("g10k")
+        repacked = DURABLE_LAUNCHES["edges_to_bitmatrix"] - packs
+        check(repacked == 0, f"durable_g10k: the restore re-packed {repacked} matrices")
         same_epochs(dev, "durable_g10k", live, restored)
         del live
         store, _ = scratch_fixpoint(dev, tc, {"arc": edges}, {"backend": "auto"})
@@ -1523,7 +1515,7 @@ def durability_phases(dev) -> dict:
         ckpt_bytes = dir_bytes(out[0])
         srv.close()
         emit("durable_g10k", fs=fs, facts=facts, baseline=baseline, restore=restore,
-             repacked=packs["n"], reads={"max_batch": READ_BATCH,
+             repacked=repacked, reads={"max_batch": READ_BATCH,
                                          "latency": "submit to reply, ms", "idle": idle,
                                          "during_checkpoint": during,
                                          "overlapped": overlapped},
@@ -3056,8 +3048,8 @@ def bitpack_phase(dev, edges, n) -> dict:
     """Phase 3b: PBME's two conversions (``csrc/bitpack.cu``) against their
     plain versions on the card, bit for bit, at the main path's shapes:
     ``build`` (the arc from ``edges``, shuffled, a tenth of them twice),
-    ``repack`` (the closure's sorted pairs packed again, as the serving layer
-    does after a delete) and ``to_table`` (the closure's matrix into its
+    ``repack`` (the closure's sorted pairs packed again, as a restore from a
+    snapshot without matrices does) and ``to_table`` (the closure's matrix into its
     padded table, 2^27 rows at G10K).  Each with median ms of kernel and
     plain version, the bound (the bytes it must move at the memory rate: the
     pairs read or written once, the matrix's words read or zeroed once, the

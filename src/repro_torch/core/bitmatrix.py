@@ -21,6 +21,10 @@ when it runs its Pallas kernel and pays the full n³ product there.
 Pattern matching: a stratum qualifies for PBME when it is a recursive binary
 IDB whose rules are TC-shaped (ΔM ⊛ E) or SG-shaped (Eᵀ ⊛ ΔM ⊛ E), with no
 aggregation.  Everything else falls back to the tuple path.
+
+Residency: :meth:`BitmatrixPlan.execute` returns the packed arc and fixpoint
+as a :class:`PackedStratum`, which the engine hands to the serving layer.
+An insert runs :meth:`PackedStratum.insert`, which returns a new one.
 """
 
 from __future__ import annotations
@@ -70,6 +74,11 @@ def transpose_packed(packed: torch.Tensor, cols: int) -> torch.Tensor:
     return pack_bits(unpack_bits(packed, cols).T)
 
 
+def packed_identity(n: int, device) -> torch.Tensor:
+    """The packed n × n identity: SG's ``x != y`` mask."""
+    return pack_bits(torch.eye(n, dtype=torch.bool, device=device))
+
+
 # --------------------------------------------------------------------------
 # fixpoint loops
 # --------------------------------------------------------------------------
@@ -110,7 +119,7 @@ def sg_fixpoint(
     with _TRACE.device_span("pbme.transpose", "pbme", device=device, n=n):
         arc_t = transpose_packed(arc, n)
     with _TRACE.device_span("pbme.mask", "pbme", device=device, n=n):
-        eye = pack_bits(torch.eye(n, dtype=torch.bool, device=device))
+        eye = packed_identity(n, device)
     sg = bitmm(arc_t, arc) & ~eye
     products = 1
     delta = sg
@@ -261,7 +270,7 @@ def sg_increment(
     heads = _frontier_rows(dat)              # dst endpoints of the new edges
     if len(heads) == 0:                      # doubles as the empty-Δ test
         return sg, 0
-    eye = pack_bits(torch.eye(n, dtype=torch.bool, device=arc.device))
+    eye = packed_identity(n, arc.device)
     if len(heads) <= n // 2:
         # every seed product has Δarcᵀ as one factor, so chain the whole
         # thing through its |heads|-row block: k·n² per factor, not n³.
@@ -309,10 +318,11 @@ class BitmatrixPlan:
     n: int
     iterations: int = 0
 
-    def execute(self, store: dict[str, Any], engine) -> None:
+    def execute(self, store: dict[str, Any], engine) -> PackedStratum:
         """Run the fixpoint on the EDB's device and install the IDB as a
         :class:`TupleRelation`, converted from the packed matrix on the device
-        (the same sorted rows, count and capacity as ``from_numpy``)."""
+        (the same sorted rows, count and capacity as ``from_numpy``).  Returns
+        the packed arc and fixpoint."""
         edb = store[self.edb]
         device = edb.rows.device
         with _TRACE.device_span("pbme.build", "pbme", device=device, n=self.n) as sp:
@@ -327,6 +337,50 @@ class BitmatrixPlan:
             rows, count = bitmatrix_to_table(m, self.n)
             sp.set(rows=count)
         store[self.idb] = TupleRelation(self.idb, 2, rows, count, engine.domain)
+        return PackedStratum(self, arc, m)
+
+
+# --------------------------------------------------------------------------
+# a resident stratum (serving)
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PackedStratum:
+    """A PBME stratum kept on the device between updates: its plan, the
+    packed arc and the packed fixpoint ``m``, each ``int32[n, ceil(n/32)]``.
+
+    No operation writes a matrix in place (``m`` may be ``arc`` itself, when
+    TC's fixpoint ends in its first round), so an epoch that holds one keeps
+    its words while a writer builds the next.
+    """
+
+    plan: BitmatrixPlan
+    arc: torch.Tensor
+    m: torch.Tensor
+
+    @classmethod
+    def pack(cls, plan: BitmatrixPlan, handles: dict[str, Any], domain: int) -> PackedStratum:
+        """Pack the stored EDB and IDB tables of ``plan`` on their device."""
+        arc, m = (
+            edges_to_bitmatrix(h.rows[: h.count], domain)
+            for h in (handles[plan.edb], handles[plan.idb])
+        )
+        return cls(plan, arc, m)
+
+    def insert(
+        self, view, domain: int, capacity_min: int
+    ) -> tuple[PackedStratum, torch.Tensor, int, int]:
+        """Resume the fixpoint after the EDB gains ``view``'s rows, on the
+        device: the new edges are packed, the increment runs the ``bitmm``
+        kernel on the compacted frontier, and the new pairs go from matrix to
+        sorted rows.  Returns ``(stratum, rows, count, iterations)``."""
+        d_arc = edges_to_bitmatrix(view.rows[: view.count], domain)
+        arc = self.arc | d_arc
+        increment = tc_increment if self.plan.kind == "tc" else sg_increment
+        m, iters = increment(self.m, arc, d_arc, domain)
+        rows, count = bitmatrix_to_table(m & ~self.m, domain, capacity_min)
+        return PackedStratum(self.plan, arc, m), rows, count, iters
 
 
 def _is_var(t, name=None):

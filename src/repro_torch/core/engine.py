@@ -30,7 +30,7 @@ import torch
 from repro_torch.core.aggregates import eval_expr, groupby_aggregate
 from repro_torch.core.analyzer import Stratification, Stratum, analyze
 from repro_torch.core.ast import Agg, Atom, Program, Var
-from repro_torch.core.bitmatrix import eligible_plan
+from repro_torch.core.bitmatrix import PackedStratum, eligible_plan
 from repro_torch.core.joins import (
     Bindings,
     antijoin,
@@ -159,6 +159,9 @@ class Engine:
                 'available; pass device="cpu" to run on the CPU'
             )
         self.stats = EvalStats()
+        #: stratum index → the resident PBME stratum its last evaluation left
+        #: (see :meth:`take_packed`)
+        self.packed: dict[int, PackedStratum] = {}
 
     # -- public API --------------------------------------------------------
 
@@ -191,6 +194,7 @@ class Engine:
                     strat = analyze(program)
                     sp.set(strata=len(strat.strata))
             t_start = time.perf_counter()
+            self.packed = {}
 
             with _TRACE.span("engine.domain", "engine") as sp:
                 domain = 1
@@ -235,6 +239,12 @@ class Engine:
         engine with an empty one, so it keeps no superseded handles alive)."""
         store, self.store = self.store, {}
         return store
+
+    def take_packed(self) -> dict[int, PackedStratum]:
+        """Hand off the packed matrices of the PBME strata evaluated since the
+        last hand-off, by stratum index (leaving the engine an empty map)."""
+        packed, self.packed = self.packed, {}
+        return packed
 
     @staticmethod
     def _to_numpy(
@@ -284,7 +294,7 @@ class Engine:
                 "stratum.eval", "engine",
                 stratum=stratum.index, backend="bitmatrix",
             ) as sp:
-                plan.execute(store, self)
+                self.packed[stratum.index] = plan.execute(store, self)
                 rows = self._note_stratum_actuals(stratum, store, t0)
                 sp.set(
                     iterations=plan.iterations,

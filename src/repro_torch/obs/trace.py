@@ -57,7 +57,7 @@ PORT_ONLY_SPANS = frozenset({
     "engine.prep", "engine.parse", "engine.analyze", "engine.domain",
     "edb.upload", "edb.dedup",
     "pbme.build", "pbme.fixpoint", "pbme.transpose", "pbme.mask", "pbme.to_rows",
-    "recompute.diff", "recompute.repack",
+    "recompute.diff",
     "query.wait", "query.lookup",
 })
 

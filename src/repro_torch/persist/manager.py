@@ -177,7 +177,7 @@ class DurabilityManager:
                     with torch.cuda.device(instance.device):
                         snap.wait_ready()
                 bm = {
-                    idx: {"arc": st["arc"], "m": st["m"]}
+                    idx: {"arc": st.arc, "m": st.m}
                     for idx, st in (snap.meta or {}).items()
                 }
                 path = write_snapshot(

@@ -22,9 +22,10 @@ pass over the stratification.  Per affected stratum one of the update modes
 applies (recorded in :class:`UpdateStats.modes`):
 
 * ``bitmatrix`` — the stratum matched PBME at materialization time; the
-  packed closure and arc matrices stay on the device and the update runs the
-  incremental frontier (``tc_increment`` / ``sg_increment``) through the
-  ``bitmm`` kernel at row-compacted shapes (M = k frontier rows).
+  engine's packed closure and arc matrices stay on the device as a
+  :class:`~repro_torch.core.bitmatrix.PackedStratum`, and the update runs its
+  incremental frontier through the ``bitmm`` kernel at row-compacted shapes
+  (M = k frontier rows).
 * ``delta`` — ingest variants (one per occurrence of a changed relation)
   evaluate with the changed atom read from the external Δ, the results are
   set-differenced against the stored IDB to seed ΔR, and the engine's
@@ -87,13 +88,7 @@ from repro_torch.analysis import AnalysisConfig
 from repro_torch.analysis.demand import DemandTransform
 from repro_torch.core.analyzer import Stratum
 from repro_torch.core.ast import Program
-from repro_torch.core.bitmatrix import (
-    bitmatrix_to_table,
-    edges_to_bitmatrix,
-    eligible_plan,
-    sg_increment,
-    tc_increment,
-)
+from repro_torch.core.bitmatrix import PackedStratum, eligible_plan
 from repro_torch.core.engine import Engine, EngineConfig, TupleView
 from repro_torch.core.relation import (
     DenseAggRelation,
@@ -186,13 +181,14 @@ class _WriteTxn:
 
     ``store`` starts as a shallow copy of the base epoch's handle map and is
     mutated freely — handles are immutable, so the base epoch is untouched.
-    ``bm``/``domain`` mirror the bitmatrix residency state and active-domain
-    size the same way.  ``mutated`` gates publication.
+    ``bm``/``domain`` mirror the PBME residency and active-domain size the
+    same way (a :class:`PackedStratum` is frozen, so a shallow copy is private
+    too).  ``mutated`` gates publication.
     """
 
     base: Snapshot                  # pinned epoch the txn builds on
     store: dict                     # private next-epoch handle map
-    bm: dict                        # private PBME residency state
+    bm: dict[int, PackedStratum]    # private PBME residency
     domain: int                     # next-epoch active-domain size
     mutated: bool = False
 
@@ -225,20 +221,20 @@ class MaterializedInstance:
             self.engine.run(self.plan.program, edb, strat=self.plan.strat,
                             return_numpy=False)
             self.strat = self.plan.strat
-            # the engine hands the handle map over: epochs own all handles, so
-            # reclamation of superseded epochs actually frees device buffers
-            handles = self.engine.take_store()
-            domain = self.engine.domain
+            # the engine hands the handle map and its PBME matrices over:
+            # epochs own all of them, so reclamation of superseded epochs
+            # actually frees device buffers
             self._install_state(
-                handles, domain, 0, self._init_bitmatrix_state(handles, domain)
+                self.engine.take_store(), self.engine.domain, 0,
+                self.engine.take_packed(),
             )
 
     def _install_state(
-        self, handles: dict, domain: int, epoch: int, bm: dict[int, dict]
+        self, handles: dict, domain: int, epoch: int, bm: dict[int, PackedStratum]
     ) -> None:
         """Install the base epoch.  PBME residency rides along as the epoch's
         meta sidecar: a pinned snapshot observes (handles, bm) atomically."""
-        self._bm: dict[int, dict] = bm
+        self._bm: dict[int, PackedStratum] = bm
         self.cache.warm(self.plan, domain, buckets=self._hot_buckets(handles),
                         device=self.device)
         self.vstore = VersionedStore(
@@ -278,7 +274,7 @@ class MaterializedInstance:
     # -- EXPLAIN ---------------------------------------------------------------
 
     def _make_plan_estimate(
-        self, handles: dict, domain: int, bm: dict[int, dict]
+        self, handles: dict, domain: int, bm: dict[int, PackedStratum]
     ) -> PlanEstimate:
         """EXPLAIN against concrete state: EDB actual sizes seed the
         System-R heuristics, stored IDB counts ride along as ``actuals``,
@@ -445,7 +441,7 @@ class MaterializedInstance:
 
     def _restore_bitmatrix_state(
         self, snap, handles: dict, domain: int
-    ) -> dict[int, dict]:
+    ) -> dict[int, PackedStratum]:
         """PBME residency from the snapshot's packed matrices (already
         ``int32`` words on the device).
 
@@ -453,18 +449,16 @@ class MaterializedInstance:
         an engine-side checkpoint, which has no residency sidecar) is
         re-packed from the loaded relations — same result, just not free.
         """
-        bm: dict[int, dict] = {}
+        bm: dict[int, PackedStratum] = {}
         for stratum in self.strat.strata:
-            plan = self._bm_eligible(stratum, domain)
+            plan = eligible_plan(stratum, domain, self.engine.config)
             if plan is None or plan.edb not in handles:
                 continue
             mats = snap.bitmatrix.get(stratum.index)
             if mats is not None and {"arc", "m"} <= set(mats):
-                arc, m = mats["arc"], mats["m"]
+                bm[stratum.index] = PackedStratum(plan, mats["arc"], mats["m"])
             else:
-                arc = self._packed(handles[plan.edb], domain)
-                m = self._packed(handles[plan.idb], domain)
-            bm[stratum.index] = {"plan": plan, "arc": arc, "m": m}
+                bm[stratum.index] = PackedStratum.pack(plan, handles, domain)
         return bm
 
     def _replay_wal(self, wal, after_epoch: int) -> None:
@@ -541,27 +535,6 @@ class MaterializedInstance:
             if isinstance(h, TupleRelation):
                 caps.add(h.capacity)
         return tuple(sorted(caps))
-
-    # -- bitmatrix residency -------------------------------------------------
-
-    def _bm_eligible(self, stratum: Stratum, domain: int):
-        return eligible_plan(stratum, domain, self.engine.config)
-
-    def _packed(self, handle: TupleRelation, domain: int) -> torch.Tensor:
-        """A binary relation's packed n × n matrix, built on the device."""
-        return edges_to_bitmatrix(handle.rows[: handle.count], domain)
-
-    def _init_bitmatrix_state(self, handles: dict, domain: int) -> dict[int, dict]:
-        """Keep PBME strata resident as packed matrices between updates."""
-        bm: dict[int, dict] = {}
-        for stratum in self.strat.strata:
-            plan = self._bm_eligible(stratum, domain)
-            if plan is None or plan.edb not in handles:
-                continue
-            arc = self._packed(handles[plan.edb], domain)
-            m = self._packed(handles[plan.idb], domain)
-            bm[stratum.index] = {"plan": plan, "arc": arc, "m": m}
-        return bm
 
     # -- reads ---------------------------------------------------------------
 
@@ -858,7 +831,7 @@ class MaterializedInstance:
                 txn = _WriteTxn(
                     base=base,
                     store=dict(base.handles),
-                    bm={k: dict(v) for k, v in self._bm.items()},
+                    bm=dict(self._bm),
                     domain=base.domain,
                 )
                 result = apply_fn(txn)
@@ -1050,67 +1023,27 @@ class MaterializedInstance:
         """
         reads: set[str] = set()
         nonmono: set[str] = set()
-        if not deleted:
-            for stratum in self.strat.strata:
-                if deadline_check is not None:
-                    deadline_check()    # stratum boundary: abort point
-                mode, kinds, refs = self._update_mode(txn, stratum, changed, nonmono)
-                if mode == "skip":
-                    continue
-                reads |= refs
-                with _TRACE.span(
-                    "stratum", "serve",
-                    index=stratum.index, resident=stratum.index in txn.bm,
-                    delta_in=sum(
-                        v.count for r, v in changed.items() if r in refs
-                    ) if _TRACE.enabled else 0,
-                ) as sp:
-                    if mode == "delta" and stratum.index in txn.bm and (
-                        self._bm_applies(txn, stratum, changed)
-                    ):
-                        iters, derived = self._bitmatrix_delta(txn, stratum, changed)
-                        stats.modes[stratum.index] = "bitmatrix"
-                    elif mode == "delta":
-                        iters, derived = self._delta_stratum(
-                            txn, stratum, changed, nonmono, kinds
-                        )
-                        stats.modes[stratum.index] = "delta"
-                    else:
-                        iters, derived = self._full_stratum(
-                            txn, stratum, changed, nonmono
-                        )
-                        stats.modes[stratum.index] = "full"
-                    sp.set(
-                        mode=stats.modes[stratum.index],
-                        iterations=iters, derived=derived,
-                    )
-                    est = self._stratum_estimate(stratum.index)
-                    if est is not None:
-                        sp.set(est_rows=est)
-                stats.iterations[stratum.index] = iters
-                stats.derived += derived
-                stats.derived_by_stratum[stratum.index] = derived
-            return reads
-
+        retracting = bool(deleted)
         for stratum in self.strat.strata:
             if deadline_check is not None:
                 deadline_check()        # stratum boundary: abort point
-            mode, kinds, refs = self._retract_mode(
+            mode, kinds, refs = self._update_mode(
                 txn, stratum, deleted, changed, nonmono
             )
             if mode == "skip":
                 continue
             reads |= refs
-            with _TRACE.span(
-                "stratum", "serve",
-                index=stratum.index, resident=stratum.index in txn.bm,
-                delta_in=sum(
+            attrs = {
+                "index": stratum.index, "resident": stratum.index in txn.bm,
+                "delta_in": sum(
                     v.count for r, v in changed.items() if r in refs
                 ) if _TRACE.enabled else 0,
-                nabla_in=sum(
+            }
+            if retracting:
+                attrs["nabla_in"] = sum(
                     v.count for r, v in deleted.items() if r in refs
-                ) if _TRACE.enabled else 0,
-            ) as sp:
+                ) if _TRACE.enabled else 0
+            with _TRACE.span("stratum", "serve", **attrs) as sp:
                 if mode == "delta" and stratum.index in txn.bm and (
                     self._bm_applies(txn, stratum, changed)
                 ):
@@ -1132,14 +1065,17 @@ class MaterializedInstance:
                     stats.modes[stratum.index] = "dred"
                     stats.retracted += sum(v.count for v in net_del.values())
                     derived = sum(v.count for v in net_add.values())
-                else:
-                    iters, n_add, n_del = self._full_stratum_diff(
-                        txn, stratum, deleted, changed
+                elif retracting:
+                    iters, derived, n_del = self._recompute_stratum(
+                        txn, stratum, changed, deleted=deleted
                     )
                     stats.modes[stratum.index] = "full"
                     stats.retracted += n_del
-                    derived = n_add
-                stats.derived += derived
+                else:
+                    iters, derived, _ = self._recompute_stratum(
+                        txn, stratum, changed, nonmono=nonmono
+                    )
+                    stats.modes[stratum.index] = "full"
                 sp.set(
                     mode=stats.modes[stratum.index], iterations=iters,
                     derived=derived,
@@ -1148,6 +1084,7 @@ class MaterializedInstance:
                 if est is not None:
                     sp.set(est_rows=est)
             stats.iterations[stratum.index] = iters
+            stats.derived += derived
             stats.derived_by_stratum[stratum.index] = derived
         return reads
 
@@ -1164,64 +1101,39 @@ class MaterializedInstance:
         self,
         txn: _WriteTxn,
         stratum: Stratum,
-        changed: dict[str, TupleView],
-        nonmono: set[str],
-    ) -> tuple[str, dict[str, str] | None, set[str]]:
-        """(mode, handle kinds, body refs) for the insert path."""
-        refs = {a.pred for r in stratum.rules for a in r.atoms}
-        if not refs & (set(changed) | nonmono):
-            return "skip", None, refs
-        if refs & nonmono:
-            return "full", None, refs  # upstream retractions: deltas unavailable
-        if any(
-            a.negated and a.pred in changed
-            for r in stratum.rules
-            for a in r.atoms
-        ):
-            return "full", None, refs  # growth of a negated relation retracts
-        kinds = self.engine._init_handles(self.strat, stratum, txn.store, fresh=False)
-        if any(
-            r.has_aggregate and kinds.get(r.head_pred) != "dense_agg"
-            for r in stratum.rules
-        ):
-            return "full", None, refs  # tuple-path aggregates overwrite groups
-        return "delta", kinds, refs
-
-    def _retract_mode(
-        self,
-        txn: _WriteTxn,
-        stratum: Stratum,
         deleted: dict[str, TupleView],
         changed: dict[str, TupleView],
         nonmono: set[str],
     ) -> tuple[str, dict[str, str] | None, set[str]]:
-        """Per-stratum dispatch for the retraction path.
+        """(mode, handle kinds, body refs) of one stratum.
 
-        ``dred`` — tuple-backed, aggregate-free, no negation over a touched
-        relation.  ``delta``/``bitmatrix`` — only insertions reach this
-        stratum.  ``full`` — deletions reach an aggregate, a dense handle, a
-        negated relation, or a PBME-resident stratum (``eligible_plan``
-        refuses decremental plans).
+        ``delta``/``bitmatrix`` — only insertions reach this stratum.
+        ``dred`` — deletions reach a tuple-backed, aggregate-free stratum
+        with no negation over a touched relation.  ``full`` — monotonicity
+        is lost (upstream retractions on the insert path, negation over a
+        touched relation, a tuple-path aggregate) or deletions reach an
+        aggregate, a dense handle, or a PBME-resident stratum
+        (``eligible_plan`` refuses decremental plans).
         """
         refs = {a.pred for r in stratum.rules for a in r.atoms}
         touched = set(deleted) | set(changed)
         if not refs & (touched | nonmono):
             return "skip", None, refs
         if refs & nonmono:
-            return "full", None, refs
+            return "full", None, refs  # upstream retractions: deltas unavailable
         if any(
             a.negated and a.pred in touched
             for r in stratum.rules
             for a in r.atoms
         ):
-            return "full", None, refs
+            return "full", None, refs  # a change of a negated relation retracts
         kinds = self.engine._init_handles(self.strat, stratum, txn.store, fresh=False)
         if not refs & set(deleted):
             if any(
                 r.has_aggregate and kinds.get(r.head_pred) != "dense_agg"
                 for r in stratum.rules
             ):
-                return "full", None, refs
+                return "full", None, refs  # tuple-path aggregates overwrite groups
             return "delta", kinds, refs
         if any(r.has_aggregate for r in stratum.rules):
             return "full", None, refs
@@ -1237,28 +1149,20 @@ class MaterializedInstance:
         self, txn: _WriteTxn, stratum: Stratum, changed: dict[str, TupleView]
     ) -> bool:
         refs = {a.pred for r in stratum.rules for a in r.atoms}
-        return refs & set(changed) == {txn.bm[stratum.index]["plan"].edb}
+        return refs & set(changed) == {txn.bm[stratum.index].plan.edb}
 
     # -- the update paths ----------------------------------------------------
 
     def _bitmatrix_delta(
         self, txn: _WriteTxn, stratum: Stratum, changed: dict[str, TupleView]
     ):
-        """The PBME increment, entirely on the device: the new edges are
-        packed there, the increment runs the ``bitmm`` kernel on the
-        compacted frontier, and the new closure pairs go from matrix to
-        sorted rows on the device and merge into the stored IDB."""
+        """The PBME increment on the device (:meth:`PackedStratum.insert`);
+        the new closure pairs, sorted rows, merge into the stored IDB."""
         st = txn.bm[stratum.index]
-        plan = st["plan"]
-        view = changed[plan.edb]
-        d_arc = edges_to_bitmatrix(view.rows[: view.count], txn.domain)
-        st["arc"] = st["arc"] | d_arc
-        m_old = st["m"]
-        fix = tc_increment if plan.kind == "tc" else sg_increment
-        m_new, iters = fix(m_old, st["arc"], d_arc, txn.domain)
-        st["m"] = m_new
-        dr, count = bitmatrix_to_table(m_new & ~m_old, txn.domain,
-                                       self.engine.config.capacity_min)   # sorted rows
+        plan = st.plan
+        txn.bm[stratum.index], dr, count, iters = st.insert(
+            changed[plan.edb], txn.domain, self.engine.config.capacity_min
+        )
         if count:
             txn.store[plan.idb] = txn.store[plan.idb].merge(dr, count)
             changed[plan.idb] = TupleView(dr, count, txn.domain)
@@ -1323,27 +1227,6 @@ class MaterializedInstance:
                 derived += view.count
         return iters, derived
 
-    def _full_stratum(
-        self,
-        txn: _WriteTxn,
-        stratum: Stratum,
-        changed: dict[str, TupleView],
-        nonmono: set[str],
-    ):
-        iters, derived, _ = self._recompute_stratum(
-            txn, stratum, changed, nonmono=nonmono
-        )
-        return iters, derived
-
-    def _full_stratum_diff(
-        self,
-        txn: _WriteTxn,
-        stratum: Stratum,
-        deleted: dict[str, TupleView],
-        changed: dict[str, TupleView],
-    ) -> tuple[int, int, int]:
-        return self._recompute_stratum(txn, stratum, changed, deleted=deleted)
-
     def _recompute_stratum(
         self,
         txn: _WriteTxn,
@@ -1364,6 +1247,10 @@ class MaterializedInstance:
         for p in stratum.preds:
             txn.store.pop(p, None)
         self.engine._eval_stratum(self.strat, stratum, txn.store)
+        packed = self.engine.take_packed()
+        if stratum.index in txn.bm:
+            # the engine evaluated at txn.domain: a domain change rebuilds
+            txn.bm[stratum.index] = packed[stratum.index]
         n_add = n_del = 0
         for p in stratum.preds:
             with _TRACE.device_span("recompute.diff", "serve", device=self.device,
@@ -1380,10 +1267,6 @@ class MaterializedInstance:
                 nonmono.add(p)      # retractions: taint downstream strata
             elif fresh is not None:
                 changed[p] = fresh
-            if stratum.index in txn.bm and txn.bm[stratum.index]["plan"].idb == p:
-                with _TRACE.device_span("recompute.repack", "serve", device=self.device,
-                                        pred=p, added=added, removed=removed):
-                    self._refresh_bitmatrix(txn, stratum.index)
         return self.engine.stats.iterations.get(stratum.index, 1), n_add, n_del
 
     def _diff(self, old_h, new_h, domain: int):
@@ -1452,11 +1335,11 @@ class MaterializedInstance:
         self.engine.run(self.plan.program, edb, strat=self.plan.strat,
                         return_numpy=False)
         txn.store = self.engine.take_store()
+        txn.bm = self.engine.take_packed()
         txn.domain = self.engine.domain
         txn.mutated = True
         self.cache.warm(self.plan, txn.domain, buckets=self._hot_buckets(txn.store),
                         device=self.device)
-        txn.bm = self._init_bitmatrix_state(txn.store, txn.domain)
         for p in self.strat.idb:
             new_count = getattr(txn.store.get(p), "count", 0)
             stats.derived += max(new_count - old_counts[p], 0)
@@ -1527,8 +1410,3 @@ class MaterializedInstance:
             torch.as_tensor(data.astype(np.int32), device=self.device), cap, domain
         )
         return TupleView(rows, len(data), domain)
-
-    def _refresh_bitmatrix(self, txn: _WriteTxn, stratum_index: int) -> None:
-        st = txn.bm[stratum_index]
-        st["arc"] = self._packed(txn.store[st["plan"].edb], txn.domain)
-        st["m"] = self._packed(txn.store[st["plan"].idb], txn.domain)

@@ -351,7 +351,7 @@ def test_checkpoint_waits_for_the_writer_stream(cuda, tmp_path, monkeypatch):
         def fn(txn):
             out = apply_fn(txn)
             bufs = [h.rows for h in txn.store.values() if isinstance(h, TupleRelation)]
-            bufs += [st["m"] for st in txn.bm.values()]
+            bufs += [st.m for st in txn.bm.values()]
             saved = [t.clone() for t in bufs]
             for t in bufs:
                 t.fill_(-7)
@@ -369,7 +369,7 @@ def test_checkpoint_waits_for_the_writer_stream(cuda, tmp_path, monkeypatch):
     assert snap.path == path and snap.epoch == gpu.epoch == 1
     for rel in ("arc", "tc"):
         np.testing.assert_array_equal(snap.handles[rel].to_numpy(), cpu.relation(rel))
-    assert torch.equal(snap.bitmatrix[0]["m"], cpu._bm[0]["m"])
+    assert torch.equal(snap.bitmatrix[0]["m"], cpu._bm[0].m)
     mgr.close()
 
 
@@ -398,7 +398,7 @@ def test_restore_on_the_card_feeds_bitmm_from_uint32_files(cuda, tmp_path):
     assert got.restore_stats == want.restore_stats
     _same_relations(got, want, ("arc", "tc"))
     _same_relations(got, live, ("arc", "tc"))
-    assert torch.equal(got._bm[0]["m"].cpu(), want._bm[0]["m"])
+    assert torch.equal(got._bm[0].m.cpu(), want._bm[0].m)
     more = [("insert", "arc", edges[-6:])]
     assert got.apply_txn(more).modes == want.apply_txn(more).modes == {0: "bitmatrix"}
     _same_relations(got, want, ("arc", "tc"))
@@ -1196,7 +1196,7 @@ def test_pbme_conversions_launch_once_an_evaluation(cuda, plan):
 
 
 def test_delete_and_reinsert_on_cuda_match_cpu(cuda):
-    """A delete (the full recompute and the re-pack of the IDB) and the
+    """A delete (the full recompute, whose matrices stay resident) and the
     re-insert (the PBME increment) on the card equal the same transactions on
     the CPU: the IDB's rows, count and capacity, and the resident matrices."""
     edges = random_graph(400, 900, seed=7)
@@ -1215,6 +1215,7 @@ def test_delete_and_reinsert_on_cuda_match_cpu(cuda):
         assert (got.count, got.capacity) == (want.count, want.capacity)
         assert torch.equal(got.rows.cpu(), want.rows)
         for key in ("arc", "m"):
-            assert torch.equal(insts["cuda"]._bm[0][key].cpu(), insts["cpu"]._bm[0][key])
+            assert torch.equal(getattr(insts["cuda"]._bm[0], key).cpu(),
+                               getattr(insts["cpu"]._bm[0], key))
     assert kp.edges_to_bitmatrix.launches > before[0]
     assert kp.bitmatrix_to_table.launches > before[1]

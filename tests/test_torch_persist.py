@@ -495,12 +495,12 @@ def test_restore_dense_and_pbme_workloads(rng, tmp_path):
     snap = latest_valid_snapshot(root, device=CPU)
     assert set(snap.bitmatrix[0]) == {"arc", "m"}
     base = _restore(root, replay=False)     # the snapshot's own matrices, installed
-    assert torch.equal(base._bm[0]["arc"], snap.bitmatrix[0]["arc"])
-    assert torch.equal(base._bm[0]["m"], snap.bitmatrix[0]["m"])
+    assert torch.equal(base._bm[0].arc, snap.bitmatrix[0]["arc"])
+    assert torch.equal(base._bm[0].m, snap.bitmatrix[0]["m"])
     restored = _restore(root)
     _assert_bit_for_bit(inst, restored)
-    for a, b in ((inst._bm[0]["arc"], restored._bm[0]["arc"]),
-                 (inst._bm[0]["m"], restored._bm[0]["m"])):
+    for a, b in ((inst._bm[0].arc, restored._bm[0].arc),
+                 (inst._bm[0].m, restored._bm[0].m)):
         assert torch.equal(a, b)
     more = np.array([[0, 31], [31, 1], [32, 39]], np.int32)
     s1 = inst.apply_txn([("insert", "arc", more)])
@@ -526,7 +526,7 @@ def test_restore_repacks_when_the_snapshot_has_no_matrices(rng, tmp_path):
            device=CPU).run(TC, {"arc": edges})
     restored = _restore(d, program=TC)
     live = MaterializedInstance(TC, {"arc": edges}, device=CPU)
-    assert torch.equal(restored._bm[0]["m"], live._bm[0]["m"])
+    assert torch.equal(restored._bm[0].m, live._bm[0].m)
     assert _as_set(restored.relation("tc")) == _as_set(live.relation("tc"))
 
 

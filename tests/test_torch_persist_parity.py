@@ -105,7 +105,7 @@ def _assert_same_state(ref, port):
         for f in ("arc", "m"):
             want = np.asarray(st[f])
             assert want.dtype == np.uint32
-            got = port._bm[idx][f].numpy().view(np.uint32)
+            got = getattr(port._bm[idx], f).numpy().view(np.uint32)
             np.testing.assert_array_equal(got, want, err_msg=f"bm {idx} {f}")
 
 
@@ -145,7 +145,7 @@ def test_same_history_same_files_and_cross_restore(case, tmp_path):
     _assert_same_state(ref_live, port_live)
     if case.endswith("pbme"):
         assert port_live._bm and any(
-            int(w) < 0 for w in port_live._bm[0]["m"].flatten())   # bit 31 set
+            int(w) < 0 for w in port_live._bm[0].m.flatten())   # bit 31 set
 
     # the snapshots are the same files: equal manifests, every SHA-256 equal
     assert [os.path.basename(p) for p in list_snapshots(port_root)] == [

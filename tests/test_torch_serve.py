@@ -122,6 +122,50 @@ def test_noops_and_domain_growth():
         assert not st.full_rebuild
 
 
+def test_the_engine_packs_the_resident_stratum(monkeypatch):
+    """The engine's PBME matrices become the instance's resident stratum:
+    building the instance, a delete's recompute and a domain-growth rebuild
+    each pack the arc once, an insert packs its new edges once, and nothing
+    packs the closure's rows back into words."""
+    import torch
+
+    from repro_torch.core import bitmatrix
+    from repro_torch.kernels.bitpack import edges_to_bitmatrix
+    from repro_torch.serve_datalog import instance
+
+    packed = []
+
+    def counted(edges, n):
+        packed.append(len(edges))
+        return edges_to_bitmatrix(edges, n)
+
+    monkeypatch.setattr(bitmatrix, "edges_to_bitmatrix", counted)
+    monkeypatch.setattr(instance, "edges_to_bitmatrix", counted, raising=False)
+
+    def resident_words_are_the_tables(inst):
+        arc, tc = inst.store["arc"], inst.store["tc"]
+        for got, rel in ((inst._bm[0].arc, arc), (inst._bm[0].m, tc)):
+            assert torch.equal(got, edges_to_bitmatrix(rel.rows[: rel.count], inst.domain))
+        assert inst.engine.domain == inst.domain
+
+    edges = random_edges(np.random.default_rng(12), 40, 120)
+    inst = MaterializedInstance(TC, {"arc": edges}, cache=PlanCache(), device="cpu")
+    assert packed == [len(edges)]
+    resident_words_are_the_tables(inst)
+    for op, rows, mode, arc_rows in (
+        ("delete", edges[:6], "full", len(edges) - 6),
+        ("insert", edges[:6], "bitmatrix", 6),
+    ):
+        del packed[:]
+        assert inst.apply_txn([(op, "arc", rows)]).modes == {0: mode}
+        assert packed == [arc_rows]
+        resident_words_are_the_tables(inst)
+    del packed[:]
+    assert inst.apply_txn([("insert", "arc", np.array([[45, 0]], np.int32))]).full_rebuild
+    assert packed == [len(edges) + 1]
+    resident_words_are_the_tables(inst)
+
+
 # --------------------------------------------------------------------------
 # admission: fingerprints, the plan cache, the analyzer's rewrites
 # --------------------------------------------------------------------------

@@ -228,7 +228,8 @@ def test_query_spans_carry_the_rid_of_their_query():
 
 def test_a_delete_traces_its_recompute_phases():
     """A delete on the resident PBME stratum recomputes it: the engine's
-    PBME phases, then one diff and one re-pack, with the facts it took away."""
+    PBME phases, whose matrices stay resident, then one diff, with the facts
+    it took away."""
     srv, edges = _tc_server()
     TRACER.enable()
     try:
@@ -240,14 +241,11 @@ def test_a_delete_traces_its_recompute_phases():
         TRACER.clear()
         srv.close()
     names = [s.name for s in spans if s.name in PORT_ONLY_SPANS]
-    assert names == ["pbme.build", "pbme.fixpoint", "pbme.to_rows", "recompute.diff",
-                     "recompute.repack"]
+    assert names == ["pbme.build", "pbme.fixpoint", "pbme.to_rows", "recompute.diff"]
     assert stats.modes == {0: "full"}
     diff = next(s for s in spans if s.name == "recompute.diff")
-    repack = next(s for s in spans if s.name == "recompute.repack")
     assert diff.args == {"pred": "tc", "added": 0, "removed": stats.retracted}
-    assert stats.retracted > 0 and repack.args == diff.args
-    assert repack.parent_id == diff.parent_id
+    assert stats.retracted > 0
 
 
 SG = """
