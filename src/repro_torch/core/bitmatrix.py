@@ -382,6 +382,26 @@ class PackedStratum:
         rows, count = bitmatrix_to_table(m & ~self.m, domain, capacity_min)
         return PackedStratum(self.plan, arc, m), rows, count, iters
 
+    def diff(
+        self, old: PackedStratum, domain: int, capacity_min: int
+    ) -> tuple[tuple[torch.Tensor, int] | None, tuple[torch.Tensor, int] | None]:
+        """The facts gained and lost since ``old``, this stratum's fixpoint
+        before a recompute at the same domain: ``(added, removed)``, each
+        ``(rows, count)`` as :func:`bitmatrix_to_table` gives them, or
+        ``None`` where no bit changed.  The words are diffed on the device and
+        one host sync reads which sides hold a bit; only those are converted.
+
+        The rows equal a diff of the two stored tables only while each table
+        holds exactly the set bits of its ``m``, as every resident stratum's
+        does."""
+        masks = (self.m & ~old.m, old.m & ~self.m)
+        hits = torch.stack([w.any() for w in masks]).tolist()
+        added, removed = (
+            bitmatrix_to_table(words, domain, capacity_min) if hit else None
+            for words, hit in zip(masks, hits)
+        )
+        return added, removed
+
 
 def _is_var(t, name=None):
     return isinstance(t, Var) and (name is None or t.name == name)

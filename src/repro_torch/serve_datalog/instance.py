@@ -1248,17 +1248,28 @@ class MaterializedInstance:
             txn.store.pop(p, None)
         self.engine._eval_stratum(self.strat, stratum, txn.store)
         packed = self.engine.take_packed()
-        if stratum.index in txn.bm:
+        old_bm = txn.bm.get(stratum.index)
+        if old_bm is not None:
             # the engine evaluated at txn.domain: a domain change rebuilds
             txn.bm[stratum.index] = packed[stratum.index]
         n_add = n_del = 0
         for p in stratum.preds:
             with _TRACE.device_span("recompute.diff", "serve", device=self.device,
                                     pred=p) as sp:
-                fresh, gone = self._diff(old[p], txn.store.get(p), txn.domain)
+                if old_bm is not None:
+                    # a resident stratum's table holds exactly the set bits
+                    # of its words: diff the words, not the tables
+                    fresh, gone = (
+                        None if side is None else TupleView(*side, txn.domain)
+                        for side in txn.bm[stratum.index].diff(
+                            old_bm, txn.domain, self.engine.config.capacity_min
+                        )
+                    )
+                else:
+                    fresh, gone = self._diff(old[p], txn.store.get(p), txn.domain)
                 added = fresh.count if fresh is not None else 0
                 removed = gone.count if gone is not None else 0
-                sp.set(added=added, removed=removed)
+                sp.set(packed=old_bm is not None, added=added, removed=removed)
             n_add += added
             n_del += removed
             if gone is not None and deleted is not None:

@@ -1219,3 +1219,103 @@ def test_delete_and_reinsert_on_cuda_match_cpu(cuda):
                                getattr(insts["cpu"]._bm[0], key))
     assert kp.edges_to_bitmatrix.launches > before[0]
     assert kp.bitmatrix_to_table.launches > before[1]
+
+
+def test_a_g10k_delete_diffs_the_resident_words(cuda, monkeypatch):
+    """G10K and the serve cell's held-out rows (1 % of arc, the draw of
+    ``bench/harness/inputs.py``): the delete's recompute diffs the resident
+    stratum's packed words with one sync, never runs ``set_difference``, and
+    grows the card's memory by under 64 MB over the two tables while it
+    diffs.  The CPU (scipy) finds one strongly connected component of 9,999
+    nodes and one source, before and after the delete, so the closure is
+    9,999 × 10,000 facts and the delete and the re-insert change none: both
+    leave the CPU's closure words and the table as it was."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from repro_torch.core import bitmatrix
+    from repro_torch.data.graphs import gnp_graph
+    from repro_torch.obs.trace import TRACER
+    from repro_torch.serve_datalog import instance
+
+    n = 10_000
+    arc = gnp_graph(n, 0.001, seed=0).astype(np.int32)
+    pick = np.sort(np.random.default_rng([0, 1]).choice(len(arc), round(len(arc) * 0.01),
+                                                          replace=False))
+    held = arc[pick]
+    scc = []
+    for edges in (arc, np.delete(arc, pick, axis=0)):
+        g = csr_matrix((np.ones(len(edges)), (edges[:, 0], edges[:, 1])), shape=(n, n))
+        _, label = connected_components(g, directed=True, connection="strong")
+        sizes = np.bincount(label)
+        assert sorted(sizes) == [1, n - 1] and (np.bincount(edges[:, 0], minlength=n) > 0).all()
+        scc.append(label == sizes.argmax())
+    assert (scc[0] == scc[1]).all()
+    in_scc = torch.from_numpy(scc[0])
+    want = pack_bits(in_scc[None, :]).expand(n, -1)        # every node reaches the component
+
+    inst = MaterializedInstance(ALL["tc"].program, {"arc": arc}, EngineConfig(),
+                                cache=PlanCache(), device=cuda)
+    base, base_arc = inst.store["tc"], inst._bm[0].arc
+    assert base.count == (n - 1) * n and torch.equal(inst._bm[0].m.cpu(), want)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("set_difference ran for the resident stratum")
+
+    growth = []
+    diff = bitmatrix.PackedStratum.diff
+
+    def measured(self, old, domain, capacity_min):
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = diff(self, old, domain, capacity_min)
+        growth.append(torch.cuda.max_memory_allocated() - start)
+        return out
+
+    monkeypatch.setattr(instance, "set_difference", refuse)
+    monkeypatch.setattr(bitmatrix.PackedStratum, "diff", measured)
+    TRACER.enable()
+    try:
+        st = inst.apply_txn([("delete", "arc", held)])
+        torch.cuda.synchronize()
+    finally:
+        TRACER.disable()
+    (span,) = [s for s in TRACER.spans() if s.name == "recompute.diff"]
+    TRACER.clear()
+    assert st.modes == {0: "full"} and (st.removed, st.retracted, st.derived) == (len(held), 0, 0)
+    assert span.args == {"pred": "tc", "packed": True, "added": 0, "removed": 0}
+    assert span.syncs <= 1
+    assert len(growth) == 1 and growth[0] < 64 << 20
+    st = inst.apply_txn([("insert", "arc", held)])
+    torch.cuda.synchronize()
+    assert st.modes == {0: "bitmatrix"} and (st.inserted, st.derived) == (len(held), 0)
+    got = inst.store["tc"]
+    assert (got.count, got.capacity) == (base.count, base.capacity)
+    assert torch.equal(got.rows, base.rows)
+    assert torch.equal(inst._bm[0].m.cpu(), want) and torch.equal(inst._bm[0].arc, base_arc)
+
+
+def test_a_g10k_delete_that_cuts_the_closure_diffs_its_words_as_its_tables(cuda):
+    """A 1 % delete that takes facts from a G10K closure (``chip_smoke.py``'s
+    ``serve_tc_pbme_delete`` instance): the resident stratum's word diff gives
+    the rows, count and capacity that ``_diff`` gives from the two tables,
+    and the published table is a fresh evaluation's."""
+    from repro_torch.data.graphs import gnp_graph
+
+    arc = gnp_graph(10_000, 0.001, seed=1).astype(np.int32)
+    k = len(arc) // 100
+    inst = MaterializedInstance(ALL["tc"].program, {"arc": arc}, EngineConfig(),
+                                cache=PlanCache(), device=cuda)
+    old_bm, old_table = inst._bm[0], inst.store["tc"]
+    st = inst.apply_txn([("delete", "arc", arc[-k:])])
+    assert st.modes == {0: "full"} and st.retracted > 0
+    table = inst.store["tc"]
+    (added, removed) = inst._bm[0].diff(old_bm, inst.domain, inst.engine.config.capacity_min)
+    (fresh, gone) = inst._diff(old_table, table, inst.domain)
+    assert added is None and fresh is None
+    assert removed[1] == gone.count == st.retracted and torch.equal(removed[0], gone.rows)
+    engine = Engine(EngineConfig(), device=cuda)
+    engine.run(ALL["tc"].program, {"arc": arc[:-k]}, return_numpy=False)
+    want = engine.take_store()["tc"]
+    assert (table.count, table.capacity) == (want.count, want.capacity)
+    assert torch.equal(table.rows, want.rows)

@@ -7,10 +7,13 @@ scenarios are those of ``test_retraction``, ``test_transactions`` and
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import random_edges
 from repro.configs.datalog_workloads import ALL as WORKLOADS
-from repro_torch.serve_datalog import TxnOp
+from repro_torch.core import Engine, EngineConfig
+from repro_torch.kernels.bitpack import bitmatrix_to_table
+from repro_torch.serve_datalog import MaterializedInstance, PlanCache, TxnOp
 from torch_parity import NEG_PROG, SG, TC, TWO_EDB_TC, stratum_of
 from torch_parity import ServePair as Pair
 
@@ -116,6 +119,109 @@ def test_interleaved_inserts_and_retractions(key):
                 axis=1,
             )
         pair.txn([(str(rng.choice(["insert", "delete"])), "arc", rows)])
+
+
+def test_a_resident_stratum_hands_its_retractions_downstream():
+    """A delete recomputes the resident TC stratum, whose ∇ view (from its
+    packed words) reaches a positive consumer (DRed) and a negated one
+    (recomputed), held to the reference after every transaction."""
+    prog = NEG_PROG + "cyc(x) :- tc(x,x).\n"
+    edges = random_edges(np.random.default_rng(8), 14, 34)
+    pair = Pair(prog, {"arc": edges}, backend="auto")
+    idx = {p: stratum_of(pair.port, p) for p in ("tc", "node", "cyc", "ntc")}
+    assert list(pair.port._bm) == [idx["tc"]]
+    want = {idx["tc"]: "full", idx["node"]: "dred", idx["cyc"]: "dred", idx["ntc"]: "full"}
+    for part in [*np.array_split(edges[-12:], 3), edges[:5]]:
+        st = pair.delete("arc", part)
+        assert st.modes == want and st.retracted > 0
+    pair.insert("arc", edges[-12:])
+
+
+# --------------------------------------------------------------------------
+# a resident PBME stratum's delete: the word diff
+# --------------------------------------------------------------------------
+
+
+def _complete(n):
+    return np.array([(a, b) for a in range(n) for b in range(n) if a != b], np.int32)
+
+
+def _diff_both_ways(inst, ops):
+    """Apply ``ops`` and diff the resident stratum across them twice: its
+    words (``PackedStratum.diff``) and its stored tables (``_diff``); the two
+    must agree in rows, count and capacity."""
+    idx = next(iter(inst._bm))
+    pred = inst._bm[idx].plan.idb
+    old_bm, old_table = inst._bm[idx], inst.store[pred]
+    st = inst.apply_txn(ops)
+    words = inst._bm[idx].diff(old_bm, inst.domain, inst.engine.config.capacity_min)
+    rows = inst._diff(old_table, inst.store[pred], inst.domain)
+    for w, r in zip(words, rows):
+        assert (w is None) == (r is None)
+        if w is not None:
+            assert w[1] == r.count and torch.equal(w[0], r.rows)
+    return st, words
+
+
+@pytest.mark.parametrize("prog", ["tc", "sg"])
+def test_the_word_diff_equals_the_row_diff(prog, tmp_path):
+    """Across deletes that cut facts, deletes that change none, a delete of
+    every arc, and a restored instance whose words were packed from its
+    tables, the resident stratum's word diff equals the diff of its tables."""
+    program = {"tc": TC, "sg": SG}[prog]
+    edges = random_edges(np.random.default_rng(9), 24, 60)
+    inst = MaterializedInstance(program, {"arc": edges}, cache=PlanCache(), device="cpu")
+    cut = 0
+    for part in np.array_split(edges[:18], 3):
+        st, (added, removed) = _diff_both_ways(inst, [("delete", "arc", part)])
+        assert set(st.modes.values()) == {"full"} and added is None
+        cut += removed is not None
+    assert cut                                          # some delete cut facts
+    st, _ = _diff_both_ways(inst, [("insert", "arc", edges[:18])])
+    assert set(st.modes.values()) == {"bitmatrix"}
+    st, sides = _diff_both_ways(inst, [("delete", "arc", inst.relation("arc"))])
+    assert sides[0] is None and sides[1][1] > 0 and inst.store[inst.strat.idb[0]].count == 0
+    _diff_both_ways(inst, [("insert", "arc", edges)])
+
+    # a complete digraph keeps every fact when one arc goes
+    k6 = _complete(6)
+    inst = MaterializedInstance(program, {"arc": k6}, cache=PlanCache(), device="cpu")
+    st, sides = _diff_both_ways(inst, [("delete", "arc", k6[:1])])
+    assert st.modes == {0: "full"} and sides == (None, None) and st.retracted == 0
+
+    # restored from an engine checkpoint: the words come from PackedStratum.pack
+    d = str(tmp_path / "ck")
+    Engine(EngineConfig(backend="tuple", checkpoint_every=1, checkpoint_dir=d),
+           device="cpu").run(program, {"arc": edges})
+    inst = MaterializedInstance.restore(d, program=program, device="cpu")
+    assert inst._bm
+    for part in np.array_split(edges[-12:], 2):
+        st, _ = _diff_both_ways(inst, [("delete", "arc", part)])
+        assert set(st.modes.values()) == {"full"}
+
+
+@pytest.mark.parametrize("prog", ["tc", "sg"])
+def test_a_resident_stratums_table_holds_exactly_its_words(prog):
+    """After every transaction the published IDB table of a resident PBME
+    stratum is the table of its packed fixpoint's set bits, in rows, count
+    and capacity.  A delete's word diff (``PackedStratum.diff``) rests on
+    this: without this test nothing guards that diff against the tables."""
+    program = {"tc": TC, "sg": SG}[prog]
+    rng = np.random.default_rng(10)
+    edges = random_edges(rng, 20, 50)
+    inst = MaterializedInstance(program, {"arc": edges[:35]}, cache=PlanCache(),
+                                device="cpu")
+    (idx,) = inst._bm
+    ops = [("insert", edges[35:]), ("delete", edges[:8]), ("insert", edges[:4]),
+           ("delete", edges[30:45]), ("insert", edges[30:40]), ("delete", edges[:20])]
+    for op, rows in ops:
+        st = inst.apply_txn([(op, "arc", rows)])
+        assert st.modes == {idx: "full" if op == "delete" else "bitmatrix"}
+        table = inst.store[inst._bm[idx].plan.idb]
+        got, count = bitmatrix_to_table(inst._bm[idx].m, inst.domain,
+                                        inst.engine.config.capacity_min)
+        assert (count, got.shape[0]) == (table.count, table.capacity)
+        assert torch.equal(got, table.rows)
 
 
 # --------------------------------------------------------------------------

@@ -244,9 +244,41 @@ def test_a_delete_traces_its_recompute_phases():
     assert names == ["pbme.build", "pbme.fixpoint", "pbme.to_rows", "recompute.diff"]
     assert stats.modes == {0: "full"}
     diff = next(s for s in spans if s.name == "recompute.diff")
-    assert diff.args == {"pred": "tc", "added": 0, "removed": stats.retracted}
+    assert diff.args == {"pred": "tc", "packed": True, "added": 0,
+                         "removed": stats.retracted}
     assert stats.retracted > 0
 
+
+def test_a_tuple_stratum_recompute_diffs_its_rows():
+    """A stratum with no resident words (here the tuple backend's negation,
+    recomputed because the relation it negates lost facts) diffs its stored
+    tables: its ``recompute.diff`` says ``packed: False``."""
+    edges = random_edges(np.random.default_rng(42), 14, 30)
+    inst = MaterializedInstance(NEG, {"arc": edges}, config=EngineConfig(backend="tuple"),
+                                device="cpu")
+    srv = DatalogServer(inst, max_batch=4)
+    TRACER.enable()
+    try:
+        rid = srv.submit_txn([("delete", "arc", edges[-4:])])
+        stats = srv.run()[rid]
+        spans = TRACER.spans()
+    finally:
+        TRACER.disable()
+        TRACER.clear()
+        srv.close()
+    (diff,) = [s for s in spans if s.name == "recompute.diff"]
+    assert "full" in stats.modes.values()
+    assert diff.args["pred"] == "ntc" and diff.args["packed"] is False
+    assert diff.args["added"] == stats.derived > 0
+
+
+NEG = """
+tc(x,y) :- arc(x,y).
+tc(x,y) :- tc(x,z), arc(z,y).
+node(x) :- arc(x,y).
+node(y) :- arc(x,y).
+ntc(x,y) :- node(x), node(y), !tc(x,y).
+"""
 
 SG = """
 sg(x,y) :- arc(p,x), arc(p,y), x != y.
