@@ -24,10 +24,10 @@ def control_run(workload: str, seed: int, seconds: float, device: str,
 
     c = load_cell(workload, root)
     if c.traffic["kind"] == "eval":
-        program = control.ShortFixpoint(c.config, c.config["nodes"], device)
+        program = control.ShortFixpoint(c.config, c.config["nodes"], device, root)
     else:
-        data = inputs.make(c.config, c.traffic, seed)
-        program = control.ShortServer(c.config, data.n, data.held, device)
+        data = inputs.make(c.config, c.traffic, seed, root)
+        program = control.ShortServer(c.config, data.n, data.held, device, root)
     return cell.run(workload, seed, seconds, False, t_start=time.perf_counter(), root=root,
                     device=device, program=program)
 

@@ -27,7 +27,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, t_start: float,
     cell = load_cell(name, root)
     kind = cell.traffic["kind"]
     on_card = torch.device(device).type == "cuda"
-    data = inputs.make(cell.config, cell.traffic, seed)
+    data = inputs.make(cell.config, cell.traffic, seed, root)
     drive = _eval if kind == "eval" else _serve
     out = drive(cell, data, seed, seconds, trace, t_start, device, on_card, program, root)
     metrics = {}
@@ -56,10 +56,12 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, t_start: float,
 
 class _Traced:
     """The traced run's instruments over a window: the spans of
-    ``repro_torch.obs.trace`` and, on the card, the device trace."""
+    ``repro_torch.obs.trace`` and, on the card, the device trace.  ``spans``
+    stays empty in an untraced run."""
 
     def __init__(self, on: bool, on_card: bool):
         self.on, self.on_card = on, on_card
+        self.spans: list = []
 
     def __enter__(self):
         if self.on:
@@ -128,7 +130,7 @@ def _eval(cell, data, seed, seconds, trace, t_start, device, on_card, program, r
     with _Traced(trace, on_card) as tr:
         win = evalcell.window(evaluate, text, data.edb, seconds)
     window_peak = torch.cuda.max_memory_allocated() if on_card else 0
-    records = {"kind": "eval", "evaluations": win.records}
+    records = {"kind": "eval", "evaluations": win.records, "spans": tr.spans}
     breakdown = tr.reduce(records)
     if trace and on_card:
         records["bitmm_calls"] = evalcell.bitmm_replay(evaluate, text, data.edb, data.n)
@@ -138,11 +140,11 @@ def _eval(cell, data, seed, seconds, trace, t_start, device, on_card, program, r
     # the check: the reference after the window, on the same host inputs
     ref = reference(cfg["reference"]["kind"], root).fixpoint(data.edb, cfg["reference"], data.n,
                                                       device)
-    gap = (check.closure_gap(win.last.rows, ref) if win.last is not None
+    gap = (check.idb_gap(win.last.judged_rows(), ref) if win.last is not None
            else {"missing_facts": ref.count, "extra_facts": 0, "duplicate_rows": 0})
     del win.last
     counts = [abs(r["count"] - ref.count) for r in win.records]
-    iters = [abs(r["iterations"] - check.expected_iterations(ref.rounds, r["backend"]))
+    iters = [abs(r["iterations"] - check.reference_iterations(ref, r["backend"]))
              for r in win.records]
     checks = check.exact(
         **gap, count_off_max=max(counts, default=0),
@@ -190,6 +192,7 @@ def _serve(cell, data, seed, seconds, trace, t_start, device, on_card, program, 
                  for t in done_txns if not isinstance(t["result"], Exception)],
         "reads": [{"queued_s": win.queued_s[r["rid"]], "latency_s": r["done"] - r["submitted"]}
                   for r in answered if r["rid"] in win.queued_s],
+        "spans": tr.spans,
     }
     breakdown = tr.reduce(records)
     e2e = {"setup_s": setup_s, "peak_dev_gib": window_peak / GIB}
@@ -222,7 +225,7 @@ def _serve(cell, data, seed, seconds, trace, t_start, device, on_card, program, 
             applied = res.removed if t["op"] == "delete" else res.inserted
             txn_off += abs(applied - len(data.held))
     final = _state_after(ops, before + len(done_txns))
-    gap = check.closure_gap(torch.as_tensor(final_idb, device=device), refs[final])
+    gap = check.idb_gap(torch.as_tensor(final_idb, device=device), refs[final])
     want_upd = states[final][upd]
     upd_off = len(final_upd) + len(want_upd) - 2 * len(
         np.intersect1d(final_upd[:, 0].astype(np.int64) * data.n + final_upd[:, 1],

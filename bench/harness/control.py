@@ -13,19 +13,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bench.harness.check import expected_iterations
+from bench.harness.check import reference_iterations
 from bench.harness.evalcell import Evaluation
 from bench.harness.spec import ROOT, reference
 
 
-def closure_rows(ref) -> torch.Tensor:
-    """A closure's facts as int32 ``[count, 2]`` rows, lexicographic."""
+def reference_rows(ref) -> torch.Tensor:
+    """A reference's facts as int32 rows, lexicographic: a closure's
+    ``[count, 2]`` pairs; a keyed relation's ``(key, value)`` pairs, or its
+    keys as ``[count, 1]``."""
+    if not hasattr(ref, "bits"):
+        cols = [ref.keys] if ref.values is None else [ref.keys, ref.values]
+        return torch.stack(cols, dim=1).to(torch.int32)
     idx, ys = torch.nonzero(ref.bits, as_tuple=True)
     return torch.stack([ref.keys[idx], ys], dim=1).to(torch.int32)
 
 
-def _short(config: dict, edb: dict, n: int, device):
-    ref = reference(config["reference"]["kind"], ROOT)
+def _short(config: dict, edb: dict, n: int, device, root=ROOT):
+    ref = reference(config["reference"]["kind"], root)
     full = ref.fixpoint(edb, config["reference"], n, device)
     return ref.fixpoint(edb, config["reference"], n, device,
                         max_rounds=max(full.rounds - 1, 0)), full.rounds
@@ -35,22 +40,23 @@ class ShortFixpoint:
     """``eval``: each evaluation the reference one round short, reporting its
     rounds as the tuple path counts them."""
 
-    def __init__(self, config: dict, n: int, device):
-        self.config, self.n, self.device = config, n, device
+    def __init__(self, config: dict, n: int, device, root=ROOT):
+        self.config, self.n, self.device, self.root = config, n, device, root
 
     def __call__(self, text: str, edb: dict) -> Evaluation:
-        short, _ = _short(self.config, edb, self.n, self.device)
-        rows = closure_rows(short)
+        short, _ = _short(self.config, edb, self.n, self.device, self.root)
+        rows = reference_rows(short)
         return Evaluation(rows=rows, count=len(rows),
-                          iterations=expected_iterations(short.rounds, "tuple"),
+                          iterations=reference_iterations(short, "tuple"),
                           backend="tuple", stratum_s=0.0)
 
 
 class ShortServer:
     """``serve``: the server protocol over the two states' short fixpoints."""
 
-    def __init__(self, config: dict, n: int, held: np.ndarray, device):
+    def __init__(self, config: dict, n: int, held: np.ndarray, device, root=ROOT):
         self.config, self.n, self.held, self.device = config, n, held, device
+        self.root = root
 
     def start(self, text: str, edb: dict):
         from bench.harness.cell import _without
@@ -59,7 +65,7 @@ class ShortServer:
         held_out = dict(edb)
         held_out[upd] = _without(edb[upd], self.held, self.n)
         self.edbs = {"full": edb, "held_out": held_out}
-        self.short = {s: _short(self.config, e, self.n, self.device)[0]
+        self.short = {s: _short(self.config, e, self.n, self.device, self.root)[0]
                       for s, e in self.edbs.items()}
         self.state, self._epoch, self.server = "full", 0, self
         self.queue, self.done, self._next = [], {}, 0
@@ -101,7 +107,7 @@ class ShortServer:
 
     def relation(self, rel: str) -> np.ndarray:
         if rel == self.config["idb"]:
-            return closure_rows(self.short[self.state]).cpu().numpy()
+            return reference_rows(self.short[self.state]).cpu().numpy()
         return self.edbs[self.state][rel]
 
     def close(self) -> None:

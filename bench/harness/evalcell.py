@@ -6,7 +6,9 @@ receives the program as text and the EDB as host numpy arrays, runs to the
 fixpoint with ``return_numpy=False`` and ends in a synchronise: the fixpoint
 stays on the card, as RecStep leaves it in its tables.  Its store is taken,
 and dropped before the next evaluation starts, except the window's last one,
-which the check reads.
+which the check reads.  A tuple IDB is judged by its table's rows; a dense
+one (a MIN/MAX table, a membership vector) is kept as its handle and read as
+rows only after the window (``Evaluation.judged_rows``).
 """
 
 from __future__ import annotations
@@ -22,12 +24,25 @@ from repro_torch.obs.trace import TRACER
 
 @dataclass
 class Evaluation:
-    rows: torch.Tensor           # int32[count, 2] of the IDB, on the device
+    rows: torch.Tensor | None    # int32[count, arity] of a tuple IDB, on the device
     count: int
     iterations: int
     backend: str
     stratum_s: float             # sum of EvalStats.stratum_seconds
     store: dict = field(repr=False, default_factory=dict)
+    handle: object = field(repr=False, default=None)    # a dense IDB, where rows is None
+
+    def judged_rows(self) -> torch.Tensor:
+        """The IDB as the check reads it, after the window: a tuple IDB's
+        rows; a dense MIN/MAX table's present ``(key, value)`` pairs; a dense
+        set's members as ``[count, 1]``; each int32, keys ascending."""
+        if self.rows is not None:
+            return self.rows
+        h = self.handle
+        if hasattr(h, "values"):             # absent keys hold ``h.absent``
+            keys = torch.nonzero(h.values != h.absent).flatten()
+            return torch.stack([keys.to(torch.int32), h.values[keys]], dim=1)
+        return torch.nonzero(h.member).to(torch.int32)
 
 
 def sync(device) -> None:
@@ -51,11 +66,13 @@ class EngineProgram:
         sync(self.device)
         store = engine.take_store()
         handle = store[self.idb]
+        dense = not hasattr(handle, "rows")
         return Evaluation(
-            rows=handle.rows[: handle.count], count=handle.count,
+            rows=None if dense else handle.rows[: handle.count], count=handle.count,
             iterations=engine.stats.total_iterations(),
             backend=engine.stats.backend_used.get(self.idb, "?"),
             stratum_s=sum(engine.stats.stratum_seconds.values()), store=store,
+            handle=handle if dense else None,
         )
 
 

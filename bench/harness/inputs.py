@@ -11,10 +11,11 @@ another order.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
-from bench.data.generators import GENERATORS
+from bench.harness.spec import ROOT, generator
 
 #: reads drawn ahead of a window; a window that uses more starts again
 READ_DRAWS = 1 << 20
@@ -35,9 +36,9 @@ def rng_of(seed: int, stream: int) -> np.random.Generator:
     return np.random.default_rng([seed % (1 << 64), stream])
 
 
-def make(config: dict, traffic: dict, seed: int) -> Inputs:
+def make(config: dict, traffic: dict, seed: int, root: Path = ROOT) -> Inputs:
     spec = config["edb"]
-    raw = GENERATORS[spec["generator"]](**spec["args"])
+    raw = generator(spec["generator"], root)(**spec["args"])
     n = config["nodes"]
     rng = rng_of(seed, 0)
     perm = rng.permutation(n).astype(np.int32)

@@ -72,3 +72,13 @@ def metric_reader(name: str, root: Path = ROOT):
 def reference(kind: str, root: Path = ROOT):
     """The plain reference module ``bench/reference/<kind>.py``."""
     return _load(root / "bench" / "reference" / f"{kind}.py", "bench_reference_")
+
+
+def generator(name: str, root: Path = ROOT):
+    """The input generator ``name``: ``bench/data/generators.py``'s where it
+    holds that name, else the function ``name`` of ``bench/data/<name>.py``."""
+    from bench.data.generators import GENERATORS
+
+    if name in GENERATORS:
+        return GENERATORS[name]
+    return getattr(_load(root / "bench" / "data" / f"{name}.py", "bench_data_"), name)

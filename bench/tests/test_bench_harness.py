@@ -123,8 +123,9 @@ def test_result_line_fields(root, name, trace):
     assert set(r["device"]) >= {"platform", "kind", "count", "memory_peak_bytes"}
     c = load_cell(name, root)
     want = {m["name"] for m in (c.per_layer if trace else c.end_to_end)}
-    if trace:   # the device's metrics come only from the card
-        want -= {"bitmm_roofline", "device_idle_pct.eval", "device_idle_pct.serve"}
+    if trace:   # the device's metrics and the spans' device times come only from the card
+        want -= {"bitmm_roofline", "device_idle_pct.eval", "device_idle_pct.serve",
+                 "to_rows_ms.eval", "lookup_ms.serve"}
     assert set(r["metrics"]) == want
     for v in r["metrics"].values():
         assert set(v) == {"value", "unit"}

@@ -1,10 +1,12 @@
-"""No module of the benchmark imports JAX or the JAX package, and the plain
-reference imports nothing of the program either.  Top-level module names
+"""No module of the benchmark imports JAX or the JAX package, the plain
+reference imports nothing of the program either, and a generator imports
+only numpy and the standard library.  Top-level module names
 are compared whole: ``repro_torch`` is not ``repro``."""
 
 from __future__ import annotations
 
 import ast
+import sys
 from pathlib import Path
 
 import pytest
@@ -36,6 +38,11 @@ def test_no_jax_and_no_jax_package(path):
                          ids=lambda p: p.name)
 def test_reference_imports_nothing_of_the_program(path):
     assert imported(path) <= {"__future__", "dataclasses", "numpy", "torch", "math"}
+
+
+@pytest.mark.parametrize("path", sorted((BENCH / "data").rglob("*.py")), ids=lambda p: p.name)
+def test_generators_import_only_numpy_and_the_standard_library(path):
+    assert imported(path) <= {"numpy"} | set(sys.stdlib_module_names)
 
 
 def test_the_check_compares_whole_names(tmp_path):

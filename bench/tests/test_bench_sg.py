@@ -65,7 +65,8 @@ def test_the_configuration_is_found_by_name():
     assert c.config["reference"] == SPEC and c.traffic["kind"] == "eval"
     assert {m["name"] for m in c.end_to_end} == {"setup_s", "eval_s", "peak_dev_gib"}
     assert {m["name"] for m in c.per_layer} == {
-        "prep_ms.eval", "bitmm_roofline", "device_idle_pct.eval"}
+        "prep_ms.eval", "bitmm_roofline", "device_idle_pct.eval", "upload_ms.eval",
+        "host_syncs.eval", "products.eval", "to_rows_ms.eval", "sg_prologue_ms.eval"}
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +99,9 @@ def test_the_tiny_cell_is_correct(root, trace):
     assert set(r["checks"]) == {"missing_facts", "extra_facts", "duplicate_rows",
                                 "count_off_max", "iterations_off_max", "failed_evaluations"}
     assert all(c["value"] == 0 and c["limit"] == 0 for c in r["checks"].values())
-    want = {"prep_ms.eval"} if trace else {"setup_s", "eval_s", "peak_dev_gib"}
+    # on the CPU the spans have no device time
+    want = ({"prep_ms.eval", "upload_ms.eval", "host_syncs.eval", "products.eval"} if trace
+            else {"setup_s", "eval_s", "peak_dev_gib"})
     assert set(r["metrics"]) == want
 
 
