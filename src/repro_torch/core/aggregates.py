@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.core.ast import Agg, Const, Rule
 from repro_torch.core.joins import Bindings
+from repro_torch.obs.trace import TRACER as _TRACE
 from repro_torch.relational.sort import SENTINEL, lexsort_rows, unique_mask
 
 INT32_MAX = 2**31 - 1
@@ -38,7 +39,19 @@ def groupby_aggregate(
 
     Returns (rows, count) with one output row per distinct group key, columns
     in head-term order (group keys + aggregate values interleaved as written).
+    Traced as an ``agg.groupby`` device span.
     """
+    with _TRACE.device_span(
+        "agg.groupby", "engine", device=bindings.valid.device, rows_in=bindings.capacity
+    ) as sp:
+        rows, groups = _groupby_aggregate(rule, bindings, capacity)
+        sp.set(groups=groups)
+    return rows, groups
+
+
+def _groupby_aggregate(
+    rule: Rule, bindings: Bindings, capacity: int
+) -> tuple[torch.Tensor, int]:
     group_terms = [t for t in rule.head_terms if not isinstance(t, Agg)]
     agg_terms = [(i, t) for i, t in enumerate(rule.head_terms) if isinstance(t, Agg)]
     if not agg_terms:

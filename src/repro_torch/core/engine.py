@@ -59,6 +59,7 @@ from repro_torch.core.seminaive import (
     rederive_seed_variants,
 )
 from repro_torch.core.setdiff import DSDState, set_difference
+from repro_torch.obs.trace import NOOP_SPAN
 from repro_torch.obs.trace import TRACER as _TRACE
 from repro_torch.relational.sort import SENTINEL
 
@@ -500,6 +501,33 @@ class Engine:
         variants: list[RuleVariant],
         iteration: int,
     ) -> IterationRecord:
+        # a MIN/MAX table's round (Δ's keys, the join, the update) is traced whole
+        span = (
+            _TRACE.device_span(
+                "agg.propagate", "engine", device=self.device,
+                pred=pred, iteration=iteration, domain=store[pred].n,
+            )
+            if handles[pred] == "dense_agg" else NOOP_SPAN
+        )
+        with span as sp:
+            rec = self._eval_idb_body(
+                strat, stratum, store, handles, deltas, dsd_state, pred, variants, iteration
+            )
+            sp.set(candidates=rec.candidates, improved=rec.delta)
+        return rec
+
+    def _eval_idb_body(
+        self,
+        strat: Stratification,
+        stratum: Stratum,
+        store: dict[str, Any],
+        handles: dict[str, str],
+        deltas: dict[str, TupleView | None],
+        dsd_state: dict[str, DSDState],
+        pred: str,
+        variants: list[RuleVariant],
+        iteration: int,
+    ) -> IterationRecord:
         cfg = self.config
         kind = handles[pred]
         rec = IterationRecord(stratum.index, iteration, pred, 0, 0, 0, 0)
@@ -842,25 +870,30 @@ class Engine:
         for i in order[1:]:
             atom, view = atoms[i], views[i]
             shared = [v for v in atom.vars() if v in bindings.cols]
-            if shared:
-                key_var = shared[0]
-                col = next(
-                    p
-                    for p, t in enumerate(atom.terms)
-                    if isinstance(t, Var) and t == key_var
-                )
-                build_rows, build_key = view.sorted_by(col)
-                probe_key = bindings.cols[key_var]
-                lo, counts = join_counts(bindings, probe_key, build_key)
-            else:
-                build_rows = view.rows
-                lo = torch.zeros(bindings.valid.shape, dtype=torch.int32, device=self.device)
-                counts = torch.where(bindings.valid, view.count, 0).to(torch.int32)
-            total = int(counts.sum())
-            if total == 0:
-                return None
-            cap = next_bucket(total, cfg.capacity_min)
-            bindings = join_materialize(bindings, atom, build_rows, lo, counts, cap)
+            with _TRACE.device_span(
+                "join", "engine", device=self.device, rows_in=bindings.count
+            ) as sp:
+                if shared:
+                    key_var = shared[0]
+                    col = next(
+                        p
+                        for p, t in enumerate(atom.terms)
+                        if isinstance(t, Var) and t == key_var
+                    )
+                    build_rows, build_key = view.sorted_by(col)
+                    probe_key = bindings.cols[key_var]
+                    lo, counts = join_counts(bindings, probe_key, build_key)
+                else:
+                    build_rows = view.rows
+                    lo = torch.zeros(bindings.valid.shape, dtype=torch.int32,
+                                     device=self.device)
+                    counts = torch.where(bindings.valid, view.count, 0).to(torch.int32)
+                total = int(counts.sum())
+                sp.set(rows=total)
+                if total == 0:
+                    return None
+                cap = next_bucket(total, cfg.capacity_min)
+                bindings = join_materialize(bindings, atom, build_rows, lo, counts, cap)
             bindings, pending_cmps = self._apply_ready(bindings, pending_cmps)
 
         for atom in atoms:

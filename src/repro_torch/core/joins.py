@@ -19,6 +19,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core.ast import Atom, Cmp, Const, Rule, Var
+from repro_torch.obs.trace import TRACER as _TRACE
 from repro_torch.relational.sort import (
     SENTINEL,
     compact_key,
@@ -138,13 +139,25 @@ def membership(
     """``bool[n_probe]``: is each probe tuple present in the table?
 
     Compact-key fast path (CCK) when the domain allows, else the universal
-    concat-lexsort membership (any arity, any domain).
+    concat-lexsort membership (any arity, any domain).  Traced as a
+    ``membership`` device span whose ``path`` is ``"key"`` or ``"scan"``.
     """
     pk = compact_key(probe_rows, domain)
     tk = compact_key(table_rows, domain)
-    if pk is not None and tk is not None:
-        lo, hi = searchsorted_rows(tk, pk)
-        return (hi > lo) & (pk != SENTINEL)
+    path = "key" if pk is not None and tk is not None else "scan"
+    with _TRACE.device_span(
+        "membership", "engine", device=probe_rows.device, path=path,
+        rows=probe_rows.shape[0] + table_rows.shape[0],
+    ):
+        if path == "key":
+            lo, hi = searchsorted_rows(tk, pk)
+            return (hi > lo) & (pk != SENTINEL)
+        return _scan_membership(probe_rows, table_rows)
+
+
+def _scan_membership(probe_rows: torch.Tensor, table_rows: torch.Tensor) -> torch.Tensor:
+    """:func:`membership` without a compact key: one lexsort of both tables
+    and two ``cummax`` scans."""
     # universal: tag sources, lexsort, member iff equal adjacent row from table
     n_p, n_t = probe_rows.shape[0], table_rows.shape[0]
     dev = probe_rows.device

@@ -51,11 +51,13 @@ import warnings
 from typing import Any
 
 #: Spans of the port that the reference's tracer does not record: the front
-#: end's, PBME's and the serving instance's phases.  Span-for-span parity
-#: with the reference, and the ANALYZE profile trees, leave them out.
+#: end's, the tuple path's and dense MIN/MAX table's operators, PBME's and
+#: the serving instance's phases.  Span-for-span parity with the reference,
+#: and the ANALYZE profile trees, leave them out.
 PORT_ONLY_SPANS = frozenset({
     "engine.prep", "engine.parse", "engine.analyze", "engine.domain",
     "edb.upload", "edb.dedup",
+    "agg.propagate", "agg.groupby", "join", "membership",
     "pbme.build", "pbme.fixpoint", "pbme.transpose", "pbme.mask", "pbme.to_rows",
     "recompute.diff",
     "query.wait", "query.lookup",

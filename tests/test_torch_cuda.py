@@ -1081,6 +1081,45 @@ def test_pbme_fixpoint_waits_on_the_host_once_a_round(cuda, plan):
     assert all(s.syncs == 0 and s.device_ns > 0 for s in inner)
 
 
+#: ``engine.run``'s host syncs for CC on ``rmat_graph(12)`` on the card, as the
+#: engine counted them before it had the ``agg.propagate``, ``join``,
+#: ``membership`` and ``agg.groupby`` spans: 51 on an H100 80GB HBM3, twice in
+#: one process, the same with the spans
+CC_RMAT12_SYNCS = 51
+
+
+def test_cc_spans_on_the_card_add_no_host_wait(cuda):
+    """CC on ``rmat_graph(12)`` on the card, traced: ``cc2`` equals the CPU's,
+    the tuple path's and the MIN table's spans carry device time, the
+    membership test waits for nothing, and ``engine.run`` waits on the host as
+    often as it did before those spans existed."""
+    from repro_torch.data.graphs import rmat_graph
+    from repro_torch.obs.trace import TRACER
+
+    arc = rmat_graph(12).astype(np.int32)
+    program = ALL["cc"].program
+    Engine(EngineConfig(), device=cuda).run(program, {"arc": arc}, return_numpy=False)
+    torch.cuda.synchronize()
+    engine = Engine(EngineConfig(), device=cuda)
+    TRACER.enable()
+    try:
+        engine.run(program, {"arc": arc}, return_numpy=False)
+        torch.cuda.synchronize()
+    finally:
+        TRACER.disable()
+    spans = TRACER.spans()
+    TRACER.clear()
+    cc2 = engine.take_store()["cc2"]
+    want = Engine(EngineConfig(), device="cpu").run(program, {"arc": arc})["cc2"]
+    np.testing.assert_array_equal(cc2.rows[: cc2.count].cpu().numpy(), want)
+    (run,) = [s for s in spans if s.name == "engine.run"]
+    assert run.syncs == CC_RMAT12_SYNCS
+    for name in ("agg.propagate", "join", "membership", "agg.groupby"):
+        mine = [s for s in spans if s.name == name]
+        assert mine and all(s.device_ns > 0 for s in mine), name
+    assert all(s.syncs == 0 for s in spans if s.name == "membership")
+
+
 # --------------------------------------------------------------------------
 # the row <-> bit-matrix conversions (csrc/bitpack.cu)
 # --------------------------------------------------------------------------

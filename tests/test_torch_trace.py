@@ -227,9 +227,10 @@ def test_query_spans_carry_the_rid_of_their_query():
 
 
 def test_a_delete_traces_its_recompute_phases():
-    """A delete on the resident PBME stratum recomputes it: the engine's
-    PBME phases, whose matrices stay resident, then one diff, with the facts
-    it took away."""
+    """A delete on the resident PBME stratum recomputes it: the arc's two
+    membership tests (the rows present, then the table less them), the
+    engine's PBME phases, whose matrices stay resident, then one diff, with
+    the facts it took away."""
     srv, edges = _tc_server()
     TRACER.enable()
     try:
@@ -241,7 +242,9 @@ def test_a_delete_traces_its_recompute_phases():
         TRACER.clear()
         srv.close()
     names = [s.name for s in spans if s.name in PORT_ONLY_SPANS]
-    assert names == ["pbme.build", "pbme.fixpoint", "pbme.to_rows", "recompute.diff"]
+    assert names == ["membership", "membership", "pbme.build", "pbme.fixpoint",
+                     "pbme.to_rows", "recompute.diff"]
+    assert all(s.args["path"] == "key" for s in spans if s.name == "membership")
     assert stats.modes == {0: "full"}
     diff = next(s for s in spans if s.name == "recompute.diff")
     assert diff.args == {"pred": "tc", "packed": True, "added": 0,
