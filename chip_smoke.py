@@ -23,6 +23,14 @@ Phases, one output line each:
    repeats, the closure's 10^8 sorted pairs packed again (the serving
    layer's re-pack) and the closure's matrix into its 2^27-row table, each
    with ms, plain ms, the bound and the allocator's peak growth;
+3c. dense_agg — the dense MIN/MAX table's update (``csrc/dense_agg.cu``)
+   against its plain version on the card, bit for bit, at RMAT-1M's round
+   shapes (n = 2^20 keys, 2^24 binding slots): the base round (10,173,110
+   sorted keys, the rest tail pads) and a full join round (keys drawn with
+   RMAT's skew, the labels of their sources as values), MIN and MAX, each
+   with the wrapper's ms (one host read included), the two kernels' ms, the
+   bound, the plain version's ms and ``scatter_reduce``'s alone, and the
+   atomics issued;
 4. tc / 5. sg — the main path: ``Engine.run`` on TC and SG over the paper's
    G10K graph (``gnp_graph(10000, p=0.001, seed=1)``) through the PBME
    kernels.  Launch counts are set to 0 just before and read just after, and
@@ -1212,20 +1220,23 @@ def kernel_counters():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from repro_torch.kernels import bitmm as kb
     from repro_torch.kernels import bitpack as kp
+    from repro_torch.kernels import dense_agg as kd
     from repro_torch.kernels import gather_sum as kg
 
     return {"bitmm": kb.bitmm, "bitmm_fused_delta": kb.bitmm_fused_delta,
             "edges_to_bitmatrix": kp.edges_to_bitmatrix,
-            "bitmatrix_to_table": kp.bitmatrix_to_table, "gather_sum": kg.gather_sum}
+            "bitmatrix_to_table": kp.bitmatrix_to_table, "gather_sum": kg.gather_sum,
+            "dense_agg_update": kd.dense_agg_update}
 
 
 def pbme_counters():
     """The wrappers of the kernels on PBME's path."""
-    return {name: c for name, c in kernel_counters().items() if name != "gather_sum"}
+    return {name: c for name, c in kernel_counters().items()
+            if name not in ("gather_sum", "dense_agg_update")}
 
 
 DURABLE_LAUNCHES = {"bitmm": 0, "bitmm_fused_delta": 0, "edges_to_bitmatrix": 0,
-                    "bitmatrix_to_table": 0, "gather_sum": 0}
+                    "bitmatrix_to_table": 0, "gather_sum": 0, "dense_agg_update": 0}
 
 
 @contextlib.contextmanager
@@ -3125,6 +3136,107 @@ def bitpack_phase(dev, edges, n) -> dict:
             for name, label in main_case.items()}
 
 
+def rmat_pairs(count: int, n_log2: int, gen, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """``count`` (source, destination) pairs drawn on the card with RMAT's
+    skew (Graph500's quadrant odds 0.57 / 0.19 / 0.19 / 0.05), sorted by
+    source as the engine's arc table is."""
+    src = torch.zeros(count, dtype=torch.int32, device=dev)
+    dst = torch.zeros(count, dtype=torch.int32, device=dev)
+    for _ in range(n_log2):
+        u = torch.rand(count, generator=gen, device=dev)
+        src = src * 2 + (u >= 0.76).int()
+        dst = dst * 2 + (((u >= 0.57) & (u < 0.76)) | (u >= 0.95)).int()
+    order = torch.argsort(src, stable=True)
+    return src[order], dst[order]
+
+
+def dense_agg_phase(dev, n_log2: int = 20, slots: int = 1 << 24,
+                    total: int = 10_173_110) -> dict:
+    """Phase 3c: the dense MIN/MAX table's update (``csrc/dense_agg.cu``)
+    against its plain version on the card, bit for bit, at RMAT-1M's round
+    shapes: n = 2^20 keys and 2^24 binding slots whose 10,173,110 valid
+    slots lie first.  ``base`` is ``cc3(x, MIN(x)) :- arc(x, _)`` over sorted
+    keys into an empty table; ``join`` a full round of ``cc3(y, MIN(z)) :-
+    cc3(x, z), arc(x, y)`` (keys y drawn with RMAT's skew, values the
+    current labels of the sources x).  Each with median ms of the wrapper
+    (the copy of the table, both kernels, the one host read), of the two
+    kernels alone, of the plain version and of ``scatter_reduce`` alone over
+    the slots (pads sent to key 0, as the plain version does), the bound
+    (reading each slot's valid byte and each valid slot's key and value,
+    reading the old table and writing the new one and Δ, at the memory rate)
+    and the atomics issued.  Returns the ``kernels`` line's row: the join
+    round under MIN, with every case under ``tables``."""
+    from repro_torch.kernels import dense_agg as kd
+    from repro_torch.kernels.ref import dense_agg_update_plain
+
+    n = 1 << n_log2
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    src, dst = rmat_pairs(total, n_log2, gen, dev)
+    pad = torch.zeros(slots - total, dtype=torch.int32, device=dev)
+    valid = torch.arange(slots, device=dev) < total
+    labels = torch.minimum(torch.arange(n, dtype=torch.int32, device=dev),
+                           torch.randint(0, n, (n,), generator=gen, device=dev,
+                                         dtype=torch.int32))
+    rounds = {   # label → (the table before the round, keys, values)
+        "base": (None, torch.cat([src, pad]), torch.cat([src, pad])),
+        "join": (labels, torch.cat([dst, pad]), torch.cat([labels[src.long()], pad])),
+    }
+    lib = kd._lib()
+    nbytes = slots + total * 8 + n * 9
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rows = {}
+    for label, (table, keys, vals) in rounds.items():
+        for op in ("MIN", "MAX"):
+            absent = kd.SENTINEL if op == "MIN" else -kd.SENTINEL
+            values = (torch.full((n,), absent, dtype=torch.int32, device=dev) if table is None
+                      else table if op == "MIN" else -table)
+            bufs = [(keys, vals if op == "MIN" else -vals, valid)]
+            got, want = kd.dense_agg_update(values, op, bufs), dense_agg_update_plain(values, op,
+                                                                                     bufs)
+            what = f"dense_agg {label} {op}"
+            check(torch.equal(got.values, want[0]) and torch.equal(got.delta, want[1]),
+                  f"{what} differs from the plain version")
+            check((got.candidates, got.count, got.delta_count) == want[2:],
+                  f"{what}: counts {got[2:5]}, plain {want[2:]}")
+            err = max(max_abs_err(got.values, want[0]), max_abs_err(got.delta, want[1]))
+            del want
+            new = values.clone()
+            delta = torch.empty(n, dtype=torch.bool, device=dev)
+            counts = torch.zeros(4, dtype=torch.int64, device=dev)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            is_min = int(op == "MIN")
+
+            def kernels():
+                new.copy_(values)
+                counts.zero_()
+                lib.dense_agg_scatter_launch(keys.data_ptr(), bufs[0][1].data_ptr(),
+                                             valid.data_ptr(), slots, n, is_min, new.data_ptr(),
+                                             counts.data_ptr(), stream)
+                lib.dense_agg_diff_launch(values.data_ptr(), new.data_ptr(), n, is_min, absent,
+                                          delta.data_ptr(), counts.data_ptr(), stream)
+
+            scatter_keys = torch.where(valid, keys, 0).long()
+            scatter_vals = torch.where(valid, bufs[0][1], absent)
+            reduce = "amin" if op == "MIN" else "amax"
+            ms = time_ms(lambda: kd.dense_agg_update(values, op, bufs))
+            kernel_ms = time_ms(kernels)
+            rows[f"{label}/{op}"] = {
+                "wrapper": "dense_agg_update", "max_abs_err": err, "ms": ms,
+                "kernel_ms": kernel_ms, "plain_ms": time_ms(
+                    lambda: dense_agg_update_plain(values, op, bufs)),
+                "library_ms": time_ms(lambda: torch.full_like(values, absent).scatter_reduce(
+                    0, scatter_keys, scatter_vals, reduce, include_self=True)),
+                "bound_ms": bound_ms, "bound_by": "bytes", "share_of_bound": bound_ms / kernel_ms,
+                "candidates": got.candidates, "atomics": got.atomics,
+                "improved": got.delta_count, "present": got.count}
+            del got, new, delta, counts, scatter_keys, scatter_vals
+            torch.cuda.empty_cache()
+    emit("dense_agg", n=n, slots=slots, valid=total, pads=slots - total, cases=rows)
+    del src, dst, rounds, valid, labels
+    torch.cuda.empty_cache()
+    return {**rows["join/MIN"], "tables": rows}
+
+
 def prep_split(program, edb, reps: int = PREP_REPS) -> dict:
     """What the benchmark's ``prep_ms.eval`` reads, taken apart: ``reps``
     evaluations as its eval cell runs them (a fresh ``Engine``,
@@ -3210,6 +3322,7 @@ def main() -> int:
         from repro_torch.data.program_facts import andersen_facts, csda_facts
         from repro_torch.kernels import _build
         from repro_torch.kernels import bitmm as kb
+        from repro_torch.kernels import dense_agg as kd
         from repro_torch.kernels.ref import (
             bitmm_fused_delta_plain, bitmm_plain, edges_to_bitmatrix_plain, pack_bits,
             unpack_bits,
@@ -3237,6 +3350,7 @@ def main() -> int:
     libs = _build.build_all()
     kb._lib()
     kg._lib()
+    kd._lib()
     ptxas = [ln.strip() for log in _build.stats["log"].values() for ln in log.splitlines()
              if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
     emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=_build.stats["seconds"],
@@ -3338,6 +3452,8 @@ def main() -> int:
     bitpack_timed = bitpack_phase(dev, edges, G10K)
     for name, row in bitpack_timed.items():
         err[name] = max(v["max_abs_err"] for v in row["tables"].values())
+    dense_agg_timed = dense_agg_phase(dev)
+    err["dense_agg_update"] = max(v["max_abs_err"] for v in dense_agg_timed["tables"].values())
 
     # -- 4/5. the main path: PBME TC and SG at G10K --------------------------
     def plain_tc(arc_m, _n):
@@ -3459,6 +3575,7 @@ def main() -> int:
         ("sssp", {"id": src, "arc": np.concatenate([rmat, w[:, None]], axis=1)}),
     ]
     reset_launches()
+    kd.dense_agg_update.launches = 0
     for name, edb in workloads:
         runs = {}
         for device in ("cuda", "cpu"):
@@ -3475,11 +3592,16 @@ def main() -> int:
              iterations=g_key[0], backends=g_key[1],
              dsd=sorted({r[-1] for r in g_key[2]}), gpu_seconds=g_s, cpu_seconds=c_s)
     check(not any(read_launches().values()), "the tuple workloads launched PBME kernels")
+    # one update a round of cc's and sssp's MIN tables, on the card only
+    launches["dense_agg_update"] = kd.dense_agg_update.launches
+    check(launches["dense_agg_update"] > 0, "the MIN tables did not launch dense_agg_update")
 
     # -- 6b. the serving layer -------------------------------------------------------
     # counted apart: ``launches`` stays the TC/SG main path's count
+    kd.dense_agg_update.launches = 0
     serve_launches = serve_phases(dev)
     serve_launches["gather_sum"] = 0
+    serve_launches["dense_agg_update"] = kd.dense_agg_update.launches
 
     # -- 6d. on-demand queries through the magic-set slices --------------------------
     serve_demand_phase(dev)
@@ -3588,16 +3710,23 @@ def main() -> int:
         "gather_sum": (
             "gather_sum.cu",
             "src/repro/kernels/gather_sum.py:49 (gather_sum_call, body _gather_sum_kernel)"),
+        "dense_agg_update": (
+            "dense_agg.cu",
+            "replaces no TPU kernel: src/repro/core/relation.py:392 (DenseAggRelation.update, "
+            "XLA's scatter)"),
     }
     # gather_sum: the item table at the main path's shape, with every table and
     # shape of phase 7 beside it; the conversions: G10K's arc and its closure's
-    # table, with phase 3b's cases beside them
-    timed = {**main_shape["dense"], **bitpack_timed, "gather_sum": gather_shapes["item"]}
+    # table, with phase 3b's cases beside them; the MIN table: RMAT-1M's join
+    # round, with phase 3c's cases beside it
+    timed = {**main_shape["dense"], **bitpack_timed, "gather_sum": gather_shapes["item"],
+             "dense_agg_update": dense_agg_timed}
     tables = {"gather_sum": {
         label: {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                         "share_of_bound", "idx")}
         for label, v in gather_shapes.items()},
-        **{name: row["tables"] for name, row in bitpack_timed.items()}}
+        **{name: row["tables"] for name, row in bitpack_timed.items()},
+        "dense_agg_update": dense_agg_timed["tables"]}
     print(json.dumps({"kernels": [
         {
             "name": name,

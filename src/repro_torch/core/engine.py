@@ -511,7 +511,7 @@ class Engine:
         )
         with span as sp:
             rec = self._eval_idb_body(
-                strat, stratum, store, handles, deltas, dsd_state, pred, variants, iteration
+                strat, stratum, store, handles, deltas, dsd_state, pred, variants, iteration, sp
             )
             sp.set(candidates=rec.candidates, improved=rec.delta)
         return rec
@@ -527,6 +527,7 @@ class Engine:
         pred: str,
         variants: list[RuleVariant],
         iteration: int,
+        span=NOOP_SPAN,
     ) -> IterationRecord:
         cfg = self.config
         kind = handles[pred]
@@ -539,33 +540,41 @@ class Engine:
             if res is not None:
                 buffers.append(res)
 
-        if kind in ("dense_agg", "dense_set"):
+        if kind == "dense_agg":
             # Δ semantics: facts live in Δ for exactly one iteration.  With
             # no candidates this iteration, Δ must CLEAR (a stale Δ would
             # re-fire forever — dead-end frontiers); with several buffers,
-            # Δ is the UNION of per-update improvements.
+            # Δ is every key the round improved.  The update clamps the keys
+            # and reads the values only at valid slots, in one host sync.
+            rounds = []
+            for bind, _valid, rule in buffers:
+                agg = rule.head_terms[1]
+                assert isinstance(agg, Agg)
+                arg = agg.arg
+                vals = (bind.cols[arg.vars[0]] if arg.const == 0 and len(arg.vars) == 1
+                        else eval_expr(arg, bind))
+                rounds.append((bind.cols[rule.head_terms[0]], vals, bind.valid))
+            new, rec.candidates, atomics = store[pred].update_round(rounds)
+            if atomics is not None:
+                span.set(atomics=atomics)
+            store[pred] = new
+            deltas[pred] = None  # dense deltas materialized on demand
+            rec.delta, rec.full = new.delta_count, new.count
+            return rec
+
+        if kind == "dense_set":
+            # Δ semantics as above: the union of the buffers' improvements
             handle = store[pred]
             new = handle
             delta_acc = torch.zeros(handle.n, dtype=torch.bool, device=self.device)
             for bind, _valid, rule in buffers:
                 keys = torch.clamp(bind.cols[rule.head_terms[0]], 0, handle.n - 1)
-                if kind == "dense_agg":
-                    agg = rule.head_terms[1]
-                    assert isinstance(agg, Agg)
-                    new = new.update(keys, eval_expr(agg.arg, bind), bind.valid)
-                else:
-                    new = new.update(keys, bind.valid)
+                new = new.update(keys, bind.valid)
                 delta_acc = delta_acc | new.delta
-            if kind == "dense_agg":
-                new = DenseAggRelation(
-                    new.name, new.n, new.op, new.values, delta_acc,
-                    new.count, int(delta_acc.sum()),
-                )
-            else:
-                new = DenseSetRelation(
-                    new.name, new.n, new.member, delta_acc,
-                    new.count, int(delta_acc.sum()),
-                )
+            new = DenseSetRelation(
+                new.name, new.n, new.member, delta_acc,
+                new.count, int(delta_acc.sum()),
+            )
             store[pred] = new
             deltas[pred] = None  # dense deltas materialized on demand
             rec.candidates = sum(int(b[1].sum()) for b in buffers)

@@ -22,6 +22,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.kernels.dense_agg import dense_agg_update
 from repro_torch.obs.trace import NOOP_SPAN
 from repro_torch.obs.trace import TRACER as _TRACE
 from repro_torch.relational.sort import (
@@ -390,27 +391,26 @@ class DenseAggRelation:
     def update(
         self, candidate_keys: torch.Tensor, candidate_vals: torch.Tensor, valid: torch.Tensor
     ) -> "DenseAggRelation":
-        keys = torch.where(valid, candidate_keys, 0).long()
-        absent = self.absent
-        vals = torch.where(valid, candidate_vals, absent).to(torch.int32)
-        best = torch.full((self.n,), absent, dtype=torch.int32, device=self.values.device)
-        if self.op == "MIN":
-            best = best.scatter_reduce(0, keys, vals, "amin", include_self=True)
-            improved = best < self.values
-            values = torch.minimum(self.values, best)
-        else:
-            best = best.scatter_reduce(0, keys, vals, "amax", include_self=True)
-            improved = best > self.values
-            values = torch.maximum(self.values, best)
-        return DenseAggRelation(
-            self.name,
-            self.n,
-            self.op,
-            values,
-            improved,
-            int((values != absent).sum()),
-            int(improved.sum()),
+        return self.update_round([(candidate_keys, candidate_vals, valid)])[0]
+
+    def update_round(self, buffers) -> tuple["DenseAggRelation", int, int | None]:
+        """One round's candidate buffers ``[(keys, vals, valid), ...]`` folded
+        into a new handle whose Δ is every key that improved in the round.
+        Returns ``(handle, candidates, atomics)``: the valid slots, and on the
+        card the atomics the update issued (``None`` on the CPU).  Keys are
+        clamped to ``[0, n)``.  With no buffers Δ is empty and nothing runs."""
+        if not buffers:
+            delta = torch.zeros(self.n, dtype=torch.bool, device=self.values.device)
+            atomics = 0 if self.values.device.type == "cuda" else None
+            return (DenseAggRelation(self.name, self.n, self.op, self.values, delta, self.count, 0),
+                    0, atomics)
+        r = dense_agg_update(
+            self.values, self.op,
+            [(k.to(torch.int32), v.to(torch.int32), ok) for k, v, ok in buffers],
         )
+        handle = DenseAggRelation(self.name, self.n, self.op, r.values, r.delta, r.count,
+                                  r.delta_count)
+        return handle, r.candidates, r.atomics
 
     def _tuples(self, present: torch.Tensor, capacity: int) -> torch.Tensor:
         srt = _key_column(present, capacity)

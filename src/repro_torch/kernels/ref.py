@@ -14,6 +14,9 @@ result is exact with or without ``allow_tf32``.
 (row, col) pairs and a packed n × n matrix through a dense ``bool[n, n]``.
 
 ``gather_sum_plain`` is the embedding-bag / ELL SpMM row sum, in float32.
+
+``dense_agg_update_plain`` is one round of the dense MIN/MAX table's update,
+each buffer scattered with ``scatter_reduce``.
 """
 
 from __future__ import annotations
@@ -93,3 +96,34 @@ def gather_sum_plain(idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     out = torch.where((idx >= 0)[..., None], rows, 0.0).sum(dim=1)
     out = torch.where((idx >= n).any(dim=1)[:, None], float("nan"), out)
     return out.to(x.dtype)
+
+
+def dense_agg_update_plain(
+    values: torch.Tensor, op: str, buffers
+) -> tuple[torch.Tensor, torch.Tensor, int, int, int]:
+    """One round of a MIN/MAX table: each buffer ``(keys, vals, valid)`` in
+    turn, valid keys clamped to ``[0, n)``, invalid slots sent to key 0 with
+    the absent value.  Returns ``(values', Δ, candidates, count, delta_count)``:
+    Δ the union of every buffer's improvements, ``candidates`` the valid
+    slots, ``count`` the keys present."""
+    from repro_torch.relational.sort import SENTINEL   # repro_torch.relational imports this module
+
+    n = values.shape[0]
+    absent = SENTINEL if op == "MIN" else -SENTINEL
+    delta = torch.zeros(n, dtype=torch.bool, device=values.device)
+    candidates = 0
+    for candidate_keys, candidate_vals, valid in buffers:
+        keys = torch.where(valid, torch.clamp(candidate_keys, 0, n - 1), 0).long()
+        vals = torch.where(valid, candidate_vals, absent).to(torch.int32)
+        best = torch.full((n,), absent, dtype=torch.int32, device=values.device)
+        if op == "MIN":
+            best = best.scatter_reduce(0, keys, vals, "amin", include_self=True)
+            improved = best < values
+            values = torch.minimum(values, best)
+        else:
+            best = best.scatter_reduce(0, keys, vals, "amax", include_self=True)
+            improved = best > values
+            values = torch.maximum(values, best)
+        delta = delta | improved
+        candidates += int(valid.sum())
+    return values, delta, candidates, int((values != absent).sum()), int(delta.sum())

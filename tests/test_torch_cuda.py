@@ -30,9 +30,11 @@ from repro_torch.configs.two_tower_retrieval import SMOKE
 from repro_torch.data.recsys_stream import RecsysStream
 from repro_torch.kernels import bitmm as kb
 from repro_torch.kernels import bitpack as kp
+from repro_torch.kernels import dense_agg as kd
 from repro_torch.kernels import gather_sum as kg
 from repro_torch.kernels.ref import (
-    bitmm_fused_delta_plain, bitmm_plain, edges_to_bitmatrix_plain, gather_sum_plain, pack_bits,
+    bitmm_fused_delta_plain, bitmm_plain, dense_agg_update_plain, edges_to_bitmatrix_plain,
+    gather_sum_plain, pack_bits,
 )
 from repro_torch.models import transformer as tf
 from repro_torch.models.recsys import TwoTower
@@ -1081,11 +1083,13 @@ def test_pbme_fixpoint_waits_on_the_host_once_a_round(cuda, plan):
     assert all(s.syncs == 0 and s.device_ns > 0 for s in inner)
 
 
-#: ``engine.run``'s host syncs for CC on ``rmat_graph(12)`` on the card, as the
-#: engine counted them before it had the ``agg.propagate``, ``join``,
-#: ``membership`` and ``agg.groupby`` spans: 51 on an H100 80GB HBM3, twice in
-#: one process, the same with the spans
-CC_RMAT12_SYNCS = 51
+#: ``engine.run``'s host syncs for CC on ``rmat_graph(12)`` on the card: 51 on
+#: an H100 80GB HBM3 while the MIN table's update read four counts a round (its
+#: present and improved keys, the round's Δ, its candidates), the same with and
+#: without the ``agg.propagate``, ``join``, ``membership`` and ``agg.groupby``
+#: spans; the update on ``csrc/dense_agg.cu`` reads them in one copy, so each
+#: of the 6 rounds waits 3 times less
+CC_RMAT12_SYNCS = 33
 
 
 def test_cc_spans_on_the_card_add_no_host_wait(cuda):
@@ -1118,6 +1122,124 @@ def test_cc_spans_on_the_card_add_no_host_wait(cuda):
         mine = [s for s in spans if s.name == name]
         assert mine and all(s.device_ns > 0 for s in mine), name
     assert all(s.syncs == 0 for s in spans if s.name == "membership")
+
+
+# --------------------------------------------------------------------------
+# the dense MIN/MAX table's update (csrc/dense_agg.cu)
+# --------------------------------------------------------------------------
+
+#: (n, slots, valid slots, how they lie, buffers): small tables, RMAT-1M's base
+#: round (10,173,110 sorted keys, 6,604,106 tail pads of 2^24 slots) and a round
+#: where half the valid slots share one key
+AGG_CASES = {
+    "tail_pads": (50, 256, 90, "tail", 1),
+    "middle_invalid": (1000, 4096, None, "random", 1),
+    "clamp": (1000, 4096, None, "wide", 1),
+    "two_buffers": (5000, 1 << 14, 9000, "tail", 2),
+    "rmat1m_base": (1 << 20, 1 << 24, 10_173_110, "sorted", 1),
+    "half_one_key": (1 << 20, 1 << 22, 3_000_000, "hub", 1),
+}
+
+
+def _agg_round(cuda, n, slots, total, how, buffers, op, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    absent = kd.SENTINEL if op == "MIN" else -kd.SENTINEL
+    values = torch.randint(-2**20, 2**20, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    values[torch.rand(n, generator=gen, device=cuda) < 0.5] = absent
+    bufs = []
+    for b in range(buffers):
+        lo, hi = (-n, 2 * n) if how == "wide" else (0, n)
+        keys = torch.randint(lo, hi, (slots,), generator=gen, device=cuda, dtype=torch.int32)
+        vals = torch.randint(-2**20, 2**20, (slots,), generator=gen, device=cuda,
+                             dtype=torch.int32)
+        if how in ("random", "wide"):
+            valid = torch.rand(slots, generator=gen, device=cuda) < 0.5
+        else:
+            valid = torch.arange(slots, device=cuda) < total - b * (total // 3)
+        if how == "sorted":                      # cc3(x, MIN(x)) :- arc(x, _)
+            keys = torch.sort(keys).values
+            vals = keys.clone()
+        if how == "hub":
+            keys[valid & (torch.rand(slots, generator=gen, device=cuda) < 0.5)] = 12345
+        bufs.append((keys, vals, valid))
+    return values, bufs
+
+
+@pytest.mark.parametrize("case", list(AGG_CASES))
+@pytest.mark.parametrize("op", ["MIN", "MAX"])
+def test_dense_agg_kernel_matches_plain(cuda, op, case):
+    """The update on the card equals the plain version on the card bit for
+    bit: the table, Δ, the candidates and both counts; one launch a round,
+    the old table untouched, and at least one atomic for each improved key,
+    at most one a candidate."""
+    values, bufs = _agg_round(cuda, *AGG_CASES[case], op, seed=len(case))
+    before = values.clone()
+    launches = kd.dense_agg_update.launches
+    got = kd.dense_agg_update(values, op, bufs)
+    want = dense_agg_update_plain(values, op, bufs)
+    assert kd.dense_agg_update.launches == launches + 1
+    assert torch.equal(got.values, want[0]) and torch.equal(got.delta, want[1])
+    assert (got.candidates, got.count, got.delta_count) == want[2:]
+    assert got.delta_count <= got.atomics <= got.candidates
+    assert torch.equal(values, before)
+    torch.cuda.synchronize()
+
+
+def test_dense_agg_update_waits_once(cuda):
+    """A round of two buffers through ``DenseAggRelation.update_round`` makes
+    one host sync and one launch; a round with no buffers makes neither."""
+    from repro_torch.core.relation import DenseAggRelation
+    from repro_torch.obs.trace import TRACER
+
+    values, bufs = _agg_round(cuda, *AGG_CASES["two_buffers"], "MIN", seed=3)
+    handle = DenseAggRelation("t", values.shape[0], "MIN", values,
+                              torch.zeros_like(values, dtype=torch.bool))
+    handle.update_round(bufs)                                       # loads the kernels
+    torch.cuda.synchronize()
+    launches = kd.dense_agg_update.launches
+    TRACER.enable()
+    try:
+        with TRACER.span("round") as full:
+            new, candidates, atomics = handle.update_round(bufs)
+        with TRACER.span("round") as empty:
+            quiet, none, no_atomics = new.update_round([])
+    finally:
+        TRACER.disable()
+        TRACER.clear()
+    assert (full.syncs, empty.syncs) == (1, 0)
+    assert kd.dense_agg_update.launches == launches + 1
+    assert candidates == sum(int(b[2].sum()) for b in bufs) and atomics > 0
+    assert (none, no_atomics, quiet.delta_count, quiet.count) == (0, 0, 0, new.count)
+    assert not bool(quiet.delta.any()) and quiet.values is new.values
+
+
+def test_cc_on_the_card_matches_plain_min_label(cuda):
+    """CC on ``rmat_graph(16)`` on the card: ``cc2`` equals the plain label
+    propagation, the rounds and candidates are its own, every round's update
+    is one launch, and each ``agg.propagate`` carries the atomics it issued."""
+    from plain_min_label import min_label
+    from repro_torch.data.graphs import rmat_graph
+    from repro_torch.obs.trace import TRACER
+
+    arc = rmat_graph(16).astype(np.int32)
+    want, rounds, candidates = min_label(arc, 1 << 16, device=cuda)
+    engine = Engine(EngineConfig(), device=cuda)
+    launches = kd.dense_agg_update.launches
+    TRACER.enable()
+    try:
+        out = engine.run(ALL["cc"].program, {"arc": arc})
+        torch.cuda.synchronize()
+    finally:
+        TRACER.disable()
+    spans = TRACER.spans()
+    TRACER.clear()
+    assert np.array_equal(out["cc2"], want)
+    assert engine.stats.total_iterations() == rounds + 4
+    props = sorted((s for s in spans if s.name == "agg.propagate"),
+                   key=lambda s: s.args["iteration"])
+    assert [s.args["candidates"] for s in props] == candidates
+    assert kd.dense_agg_update.launches == launches + len(props)
+    assert all(s.args["improved"] <= s.args["atomics"] <= s.args["candidates"] for s in props)
 
 
 # --------------------------------------------------------------------------

@@ -17,9 +17,10 @@ import torch
 from repro.kernels import ops
 from repro.relational.embedding import embedding_bag as ref_embedding_bag
 from repro_torch.kernels import bitmm as kb
+from repro_torch.kernels import dense_agg as kd
 from repro_torch.kernels import gather_sum as kg
 from repro_torch.kernels.ref import (
-    bitmm_fused_delta_plain, bitmm_plain, gather_sum_plain, pack_bits,
+    bitmm_fused_delta_plain, bitmm_plain, dense_agg_update_plain, gather_sum_plain, pack_bits,
 )
 
 SHAPES = [(128, 128, 128), (130, 70, 200), (64, 33, 97)]
@@ -236,3 +237,48 @@ def test_gather_sum_refuses_bad_arguments(match, call):
     with pytest.raises(ValueError, match=match):
         call()
     assert kg.gather_sum.launches == 0
+
+
+def _agg_operands(slots=64, n=20):
+    rng = np.random.default_rng(slots)
+    values = torch.as_tensor(rng.integers(-50, 50, size=n).astype(np.int32))
+    keys = torch.as_tensor(rng.integers(-5, n + 5, size=slots).astype(np.int32))
+    vals = torch.as_tensor(rng.integers(-60, 60, size=slots).astype(np.int32))
+    return values, keys, vals, torch.as_tensor(rng.random(slots) < 0.7)
+
+
+@pytest.mark.parametrize("op", ["MIN", "MAX"])
+def test_dense_agg_cpu_tensors_take_the_plain_version(op):
+    """The CPU route is the plain version, launches nothing, reports no
+    atomics and leaves the old table as it was."""
+    values, keys, vals, valid = _agg_operands()
+    before = values.clone()
+    got = kd.dense_agg_update(values, op, [(keys, vals, valid), (vals, keys, ~valid)])
+    want = dense_agg_update_plain(values, op, [(keys, vals, valid), (vals, keys, ~valid)])
+    assert torch.equal(got.values, want[0]) and torch.equal(got.delta, want[1])
+    assert (got.candidates, got.count, got.delta_count) == want[2:] and got.candidates == 64
+    assert got.atomics is None and kd.dense_agg_update.launches == 0
+    assert torch.equal(values, before)
+
+
+def _bad_agg_calls():
+    values, keys, vals, valid = _agg_operands()
+    return [
+        ("'MIN' or 'MAX'", lambda: kd.dense_agg_update(values, "SUM", [])),
+        ("values must be", lambda: kd.dense_agg_update(values.long(), "MIN", [])),
+        ("values must be", lambda: kd.dense_agg_update(values[None], "MIN", [])),
+        ("keys must be", lambda: kd.dense_agg_update(values, "MIN", [(keys.long(), vals, valid)])),
+        ("vals must be", lambda: kd.dense_agg_update(values, "MIN", [(keys, vals[None], valid)])),
+        ("valid must be", lambda: kd.dense_agg_update(values, "MIN", [(keys, vals, valid.int())])),
+        ("shapes", lambda: kd.dense_agg_update(values, "MIN", [(keys, vals[:3], valid)])),
+        ("cuda or cpu", lambda: kd.dense_agg_update(values.to("meta"), "MIN", [])),
+        ("is on", lambda: kd.dense_agg_update(values, "MIN", [(keys.to("meta"), vals, valid)])),
+    ]
+
+
+@pytest.mark.parametrize("match, call", _bad_agg_calls(), ids=[f"bad{i}" for i in range(9)])
+def test_dense_agg_refuses_bad_arguments(match, call):
+    """Checked before any dispatch, so the CUDA route refuses them too."""
+    with pytest.raises(ValueError, match=match):
+        call()
+    assert kd.dense_agg_update.launches == 0

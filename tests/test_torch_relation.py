@@ -149,6 +149,67 @@ def test_dense_handles_update(op):
         _same_array(ra.full_tuples(16)[0], pa.full_tuples(16)[0])
 
 
+def _agg_round_case(name, rng, n):
+    """(earlier single-buffer updates, the round's buffers), each buffer a
+    (keys, vals, valid) triple of numpy arrays."""
+    def buf(size, lo=0, hi=n, p_valid=0.8, vlo=-100, vhi=100):
+        return (rng.integers(lo, hi, size=size).astype(np.int32),
+                rng.integers(vlo, vhi, size=size).astype(np.int32),
+                rng.random(size) < p_valid)
+
+    warm = [buf(40, p_valid=0.5)]
+    if name == "tail_pads":                      # a binding table: pads behind `total`
+        keys, vals, _ = buf(256)
+        return warm, [(keys, vals, np.arange(256) < 90)]
+    if name == "middle_invalid":
+        return warm, [buf(200, p_valid=0.5)]
+    if name == "clamp":                          # valid keys below 0 and at or above n
+        return warm, [buf(200, lo=-2 * n, hi=3 * n, p_valid=0.9)]
+    if name == "one_key":
+        keys, vals, valid = buf(300)
+        keys[rng.random(300) < 0.9] = 7
+        return warm, [(keys, vals, valid)]
+    if name == "equal_to_current":               # only the earlier values come back
+        keys, vals, valid = warm[0]
+        return warm, [(keys.copy(), vals.copy(), valid.copy())]
+    if name == "absent_to_present":              # an empty table's first round
+        return [], [buf(120, hi=n // 2)]
+    assert name == "two_buffers"
+    return warm, [buf(150), buf(90, p_valid=0.6)]
+
+
+@pytest.mark.parametrize("case", ["tail_pads", "middle_invalid", "clamp", "one_key",
+                                  "equal_to_current", "absent_to_present", "two_buffers"])
+@pytest.mark.parametrize("op", ["MIN", "MAX"])
+def test_dense_agg_round_matches_reference(op, case):
+    """One round of the MIN/MAX table on the CPU (``update_round``, the plain
+    version) against the reference's ``update`` bit for bit: values, Δ,
+    ``count`` and ``delta_count``.  The reference engine clips the keys
+    first, and unions the buffers' Δ of a round."""
+    rng = np.random.default_rng(len(case))
+    n = 50
+    warm, bufs = _agg_round_case(case, rng, n)
+    ra, pa = ref.DenseAggRelation.empty("a", n, op), port.DenseAggRelation.empty("a", n, op, "cpu")
+    for keys, vals, valid in warm:
+        ra = ra.update(jnp.asarray(keys), jnp.asarray(vals), jnp.asarray(valid))
+        pa = pa.update(torch.as_tensor(keys), torch.as_tensor(vals), torch.as_tensor(valid))
+    union = jnp.zeros(n, bool)
+    for keys, vals, valid in bufs:
+        ra = ra.update(jnp.clip(jnp.asarray(keys), 0, n - 1), jnp.asarray(vals),
+                       jnp.asarray(valid))
+        union = union | ra.delta
+    ra = ref.DenseAggRelation("a", n, op, ra.values, union, ra.count, int(union.sum()))
+    pa, candidates, atomics = pa.update_round(
+        [tuple(torch.as_tensor(a) for a in b) for b in bufs])
+    _same(ra, pa)
+    assert (ra.count, ra.delta_count) == (pa.count, pa.delta_count)
+    assert candidates == sum(int(b[2].sum()) for b in bufs) and atomics is None
+    if case == "equal_to_current":
+        assert pa.delta_count == 0
+    if case == "absent_to_present":
+        assert pa.count == pa.delta_count > 0
+
+
 def _reference_store():
     rng = np.random.default_rng(5)
     edges = np.unique(rng.integers(0, 30, size=(70, 2)), axis=0).astype(np.int32)
