@@ -588,37 +588,44 @@ class Engine:
             rec.full = handle.count
             return rec
 
-        if cfg.enable_uie:
-            cand = torch.cat([b[0] for b in buffers], dim=0)
-        else:
-            # ablation: dedup each subquery separately, then re-union (the
-            # paper's "Individual IDB Evaluation" with temp tables, Fig. 4)
-            parts = []
-            for rows, _valid, _rule in buffers:
-                cap_i = next_bucket(rows.shape[0], cfg.capacity_min)
-                srt = _sort_pad(rows, cap_i, self.domain)
-                dd, _ = _dedup_sorted(srt, self.domain)
-                parts.append(dd)
-            cand = torch.cat(parts, dim=0)
-        rec.candidates = int((cand[:, 0] != SENTINEL).sum())
+        with _TRACE.device_span(
+            "uie.dedup", "engine", device=self.device, pred=pred, iteration=iteration,
+        ) as sp:
+            if cfg.enable_uie:
+                cand = torch.cat([b[0] for b in buffers], dim=0)
+            else:
+                # ablation: dedup each subquery separately, then re-union (the
+                # paper's "Individual IDB Evaluation" with temp tables, Fig. 4)
+                parts = []
+                for rows, _valid, _rule in buffers:
+                    cap_i = next_bucket(rows.shape[0], cfg.capacity_min)
+                    srt = _sort_pad(rows, cap_i, self.domain)
+                    dd, _ = _dedup_sorted(srt, self.domain)
+                    parts.append(dd)
+                cand = torch.cat(parts, dim=0)
+            rec.candidates = int((cand[:, 0] != SENTINEL).sum())
 
-        cap = next_bucket(cand.shape[0], cfg.capacity_min)
-        cand = _sort_pad(cand, cap, self.domain)
-        deduped, rec.deduped = _dedup_sorted(cand, self.domain)
+            cap = next_bucket(cand.shape[0], cfg.capacity_min)
+            cand = _sort_pad(cand, cap, self.domain)
+            deduped, rec.deduped = _dedup_sorted(cand, self.domain)
+            sp.set(candidates=rec.candidates, deduped=rec.deduped, capacity=cap)
 
-        delta_rows, delta_count, strategy = set_difference(
-            deduped,
-            rec.deduped,
-            handle.rows,
-            handle.count,
-            self.domain,
-            dsd_state[pred],
-            mode=cfg.dsd if cfg.enable_oof or cfg.dsd != "dynamic" else "opsd",
-        )
+        with _TRACE.device_span("dsd", "engine", device=self.device) as sp:
+            delta_rows, delta_count, strategy = set_difference(
+                deduped,
+                rec.deduped,
+                handle.rows,
+                handle.count,
+                self.domain,
+                dsd_state[pred],
+                mode=cfg.dsd if cfg.enable_oof or cfg.dsd != "dynamic" else "opsd",
+            )
+            sp.set(delta=delta_count)
         rec.dsd_strategy = strategy
         rec.delta = delta_count
 
-        store[pred] = handle.merge(delta_rows, delta_count)
+        with _TRACE.device_span("idb.merge", "engine", device=self.device):
+            store[pred] = handle.merge(delta_rows, delta_count)
         rec.full = store[pred].count
         dcap = next_bucket(max(delta_count, 1), cfg.capacity_min)
         deltas[pred] = TupleView(delta_rows[:dcap], delta_count, self.domain)

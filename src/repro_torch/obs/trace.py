@@ -58,6 +58,7 @@ PORT_ONLY_SPANS = frozenset({
     "engine.prep", "engine.parse", "engine.analyze", "engine.domain",
     "edb.upload", "edb.dedup",
     "agg.propagate", "agg.groupby", "join", "membership",
+    "uie.dedup", "dsd", "idb.merge",
     "pbme.build", "pbme.fixpoint", "pbme.transpose", "pbme.mask", "pbme.to_rows",
     "recompute.diff",
     "query.wait", "query.lookup",

@@ -1242,6 +1242,52 @@ def test_cc_on_the_card_matches_plain_min_label(cuda):
     assert all(s.args["improved"] <= s.args["atomics"] <= s.args["candidates"] for s in props)
 
 
+#: ``engine.run``'s host syncs for Andersen on ``andersen_facts(3)`` on the card:
+#: 209 on an H100 80GB HBM3 over its 9 iterations, traced, with the
+#: ``uie.dedup``, ``dsd`` and ``idb.merge`` spans in place and without them
+ANDERSEN_D3_SYNCS = 209
+
+
+def test_andersen_on_the_card_matches_plain_points_to(cuda):
+    """Andersen on ``andersen_facts(3)`` on the card, traced: ``pointsTo``
+    equals the plain points-to analysis, the iteration count and each
+    round's derivations and new facts are its own, the tuple path's round
+    spans carry device time, and ``engine.run`` waits on the host as often
+    as it did before those spans existed."""
+    from plain_points_to import derivations, new_facts, points_to
+    from repro_torch.data.program_facts import andersen_facts
+    from repro_torch.obs.trace import TRACER
+
+    edb, n = andersen_facts(3)
+    program = ALL["andersen"].program
+    Engine(EngineConfig(), device=cuda).run(program, edb, return_numpy=False)
+    torch.cuda.synchronize()
+    engine = Engine(EngineConfig(), device=cuda)
+    TRACER.enable()
+    try:
+        engine.run(program, edb, return_numpy=False)
+        torch.cuda.synchronize()
+    finally:
+        TRACER.disable()
+    spans = TRACER.spans()
+    TRACER.clear()
+    table = engine.take_store()["pointsTo"]
+    want, rounds = points_to(edb, n, device=cuda)
+    np.testing.assert_array_equal(table.rows[: table.count].cpu().numpy(), want)
+    assert engine.stats.total_iterations() == rounds + 2
+    (run,) = [s for s in spans if s.name == "engine.run"]
+    assert run.syncs == ANDERSEN_D3_SYNCS
+    derived, added = derivations(edb, n, device=cuda), new_facts(edb, n, device=cuda)
+    assert all(derived) and len(derived) == rounds + 2
+    dedups = [s for s in spans if s.name == "uie.dedup"]
+    assert [s.args["candidates"] for s in dedups] == derived
+    assert [s.args["delta"] for s in spans if s.name == "dsd"] == added
+    for name in ("uie.dedup", "dsd", "idb.merge"):
+        mine = [s for s in spans if s.name == name]
+        assert len(mine) == rounds + 2 and all(s.device_ns is not None for s in mine), name
+    assert all(s.device_ns > 0 for s in spans if s.name in ("uie.dedup", "dsd"))
+
+
 # --------------------------------------------------------------------------
 # the row <-> bit-matrix conversions (csrc/bitpack.cu)
 # --------------------------------------------------------------------------
